@@ -1,6 +1,6 @@
 """End-to-end demo: CMIP-style fields -> transport operator -> workloads.
 
-Runs anywhere (CPU or TPU). On CPU, enable float64 for Myr-scale
+Runs anywhere (CPU or GPU). On CPU, enable float64 for Myr-scale
 conservation diagnostics:
 
     JAX_ENABLE_X64=1 JAX_PLATFORMS=cpu python examples/end_to_end.py

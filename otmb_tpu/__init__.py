@@ -1,11 +1,11 @@
-"""otmb_tpu — TPU-native ocean transport-operator engine.
+"""otmb_tpu — ocean transport-operator engine in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 OceanTransportMatrixBuilder.jl: ingest CMIP Arakawa C-grid mass
 transports and grid metrics, close the six-face cell fluxes by mass
 conservation, and assemble the advection-diffusion transport operator
 T = Tadv + TkH + TkVML + TkVdeep as dense stencil coefficients applied
-matrix-free on TPU.
+matrix-free on the accelerator.
 
 Public API mirrors the reference exports
 (src/OceanTransportMatrixBuilder.jl:31-36).
@@ -29,7 +29,6 @@ from .models.redi import (
     redi_apply,
     redi_operator_to_bf16,
 )
-from .models.redi_pallas import redi_apply_pallas, redi_apply_pallas_multi
 from .models.redigm import (
     add_bolus_transports,
     bolus_gm_velocity,
@@ -41,14 +40,12 @@ from .models.solvers import (
     explicit_euler_propagate,
     ideal_age,
     implicit_euler_step,
-    resolve_apply_impl,
     sequestration_time,
     solve_shifted_chunked_multi,
     solve_shifted_multi,
     water_mass_fractions,
 )
 from .models.transport import assemble_transport
-from .ops.assemble_pallas import assemble_T_pallas
 from .ops.apply import (
     apply_stencil,
     apply_stencil_transpose,
@@ -62,13 +59,7 @@ from .ops.autodiff import (
 )
 from .ops.coeffs import StencilCoeffs, add_coeffs
 from .ops.fluxes import FaceFluxes, facefluxes, facefluxesfrommasstransport
-from .ops.stencil_pallas import (
-    apply_stencil_pallas,
-    apply_stencil_pallas_multi,
-    euler_propagate_pallas,
-    euler_step_pallas,
-    euler_step_pallas_multi,
-)
+from .ops.stencil_pallas import apply_stencil_pallas_multi, euler_step_pallas_multi
 from .ops.velocities import (
     facefluxesfromvelocities,
     fluxes2velocity,
@@ -120,17 +111,12 @@ __all__ = [
     "apply_stencil_ad",
     "euler_step_ad",
     "differentiable_solve",
-    "apply_stencil_pallas",
     "apply_stencil_pallas_multi",
-    "euler_step_pallas",
     "euler_step_pallas_multi",
-    "euler_propagate_pallas",
     "assemble_transport",
-    "assemble_T_pallas",
     "explicit_euler_propagate",
     "implicit_euler_step",
     "ideal_age",
-    "resolve_apply_impl",
     "sequestration_time",
     "solve_shifted_multi",
     "solve_shifted_chunked_multi",
@@ -143,8 +129,6 @@ __all__ = [
     "build_redi_operator",
     "redi_apply",
     "redi_operator_to_bf16",
-    "redi_apply_pallas",
-    "redi_apply_pallas_multi",
     "ideal_age_coarsened",
     "lump_and_spray",
     "coeffs_to_scipy",

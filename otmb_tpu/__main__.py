@@ -163,13 +163,14 @@ def main(argv=None) -> int:
     p.add_argument("--refine", action="store_true",
                    help="mixed-precision iterative refinement (f32 Krylov + "
                         "f64 defect correction; needed for tight tolerances "
-                        "on TPU)")
+                        "with an f32 operator)")
     p.add_argument("--adjoint", action="store_true",
                    help="solve sequestration time (T' + M) instead")
     p.add_argument("--apply-impl", choices=["jnp", "pallas"], default="jnp",
                    dest="apply_impl",
-                   help="inner matvec: jnp (GSPMD-shardable) or the fused "
-                        "Pallas kernel (fastest single-chip)")
+                   help="jnp (plain path, GSPMD-shardable) or pallas (the "
+                        "GPU kernel route: Thomas preconditioner kernel, "
+                        "chunked BiCGStab(2) on large grids)")
     p.set_defaults(fn=cmd_idealage)
 
     p = sub.add_parser("fractions",

@@ -2,7 +2,7 @@
 
 The reference stops at the experimental GM bolus velocity (RediGM.jl); the
 along-isopycnal (Redi) diffusion tensor itself is left unimplemented.
-Here it is provided TPU-natively as a finite-volume flux divergence with
+Here it is provided as a finite-volume flux divergence with
 the small-slope Redi tensor (Redi 1982), slopes from the same triads and
 clamp/taper as the GM path (reference RediGM.jl:52-64):
 
@@ -206,8 +206,7 @@ def redi_apply(op: RediOperator, chi):
 
     Branch-free linear stencil: every mask/NaN-guard lives in the
     precomputed coefficients (see RediOperator), so this is seven shifted
-    multiply-adds per stage — the same algebra the fused Pallas kernel
-    (redi_apply_pallas) executes slab by slab.
+    multiply-adds per stage, which XLA fuses.
     """
     topo = op.topology
     chi = jnp.where(op.wet, jnp.asarray(chi), 0.0)
@@ -255,10 +254,9 @@ _COEF_FIELDS = (
 def redi_operator_to_bf16(op: RediOperator) -> RediOperator:
     """Cast the coefficient streams to bfloat16 (mixed-precision mode).
 
-    Halves the coefficient HBM traffic of the fused Redi kernels; the
-    kernels upcast each block to the tracer dtype in-register, so the
-    tracer math and accumulation stay f32. Same design as the bf16
-    coefficient mode of the 7-point apply kernel (ops/stencil_pallas.py).
+    Halves the coefficient traffic of `redi_apply`; the coefficients are
+    promoted to the tracer dtype inside the fused arithmetic, so the
+    tracer math and accumulation stay f32.
     """
     return dataclasses.replace(
         op,

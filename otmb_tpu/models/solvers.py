@@ -20,9 +20,15 @@ import jax.numpy as jnp
 import numpy as np
 from jax.scipy.sparse.linalg import bicgstab, gmres
 
-from ..grid.topology import GridTopology
-from ..ops.apply import apply_stencil
+from ..grid.topology import GridTopology, neighbor_values
+from ..ops.apply import apply_stencil, apply_stencil_transpose, transpose_coeffs
 from ..ops.coeffs import StencilCoeffs
+from ..ops.pallas_util import kernel_route
+from ..ops.stencil_pallas import (
+    apply_stencil_pallas_multi,
+    euler_step_pallas_multi,
+)
+from ..ops.tridiag_pallas import tridiag_solve
 
 
 @partial(jax.jit, static_argnames=("topology",))
@@ -35,10 +41,20 @@ def explicit_euler_step(coeffs: StencilCoeffs, chi, dt, topology: GridTopology):
 def explicit_euler_propagate(
     coeffs: StencilCoeffs, chi, dt, nsteps: int, topology: GridTopology
 ):
-    """nsteps of forward Euler as a single compiled scan."""
+    """nsteps of forward Euler as a single compiled scan. `chi` is one
+    (nz, ny, nx) tracer — XLA's fused step — or a (B, nz, ny, nx) batch,
+    which takes the batched stencil kernel on the GPU
+    (`ops/stencil_pallas.py`; the same plain step on the CPU)."""
 
-    def body(c, _):
-        return c - dt * apply_stencil(coeffs, c, topology), None
+    if jnp.ndim(chi) == 4:
+        route = kernel_route()
+
+        def body(c, _):
+            return euler_step_pallas_multi(coeffs, c, dt, topology,
+                                           route), None
+    else:
+        def body(c, _):
+            return c - dt * apply_stencil(coeffs, c, topology), None
 
     out, _ = jax.lax.scan(body, jnp.asarray(chi), None, length=nsteps)
     return out
@@ -51,59 +67,42 @@ def _jacobi_preconditioner(diag):
     return lambda x: inv * x
 
 
-def _tridiag_preconditioner(coeffs: StencilCoeffs, shifted_diag):
+def _tridiag_preconditioner(coeffs: StencilCoeffs, shifted_diag,
+                            route: str = "jnp"):
     """Vertical-line preconditioner: per-column tridiagonal solve of the
     operator's vertical part, M = diag(shifted) + T_top + T_bottom.
 
     The stiff entries of T are the mixed-layer vertical diffusion (kappa
     ratios of ~1e4 against the background), and they are exactly the
     tridiagonal k-coupling — so one Thomas sweep per column captures them.
-    nz is small (50-75) and every (j, i) column solves independently, so
-    the scan is a few fully-vectorized passes over (nz, ny, nx).
+    `route` (`ops.pallas_util.kernel_route`) picks the Thomas kernel or
+    the plain scans; the solve applies to (nz, ny, nx) fields and to
+    (B, nz, ny, nx) batches alike.
     """
     lower = coeffs.bottom  # couples to k+1
     upper = coeffs.top  # couples to k-1
-    diag = shifted_diag
     # Guard land columns (all-zero rows): unit diagonal.
-    diag = jnp.where(diag != 0, diag, 1.0)
+    diag = jnp.where(shifted_diag != 0, shifted_diag,
+                     jnp.ones((), jnp.result_type(shifted_diag)))
+    return lambda b: tridiag_solve(lower, diag, upper, b, route)
 
-    def solve(b):
-        nz = b.shape[0]
 
-        # Thomas forward sweep (vectorized over the trailing (ny, nx)).
-        def fwd(carry, idx):
-            cp_prev, dp_prev = carry
-            k = idx
-            denom = diag[k] - upper[k] * cp_prev
-            denom = jnp.where(denom != 0, denom, 1.0)
-            cp = lower[k] / denom
-            dp = (b[k] - upper[k] * dp_prev) * (1.0 / denom)
-            return (cp, dp), (cp, dp)
-
-        zeros = jnp.zeros_like(b[0])
-        (_, _), (cps, dps) = jax.lax.scan(
-            fwd, (zeros, zeros), jnp.arange(nz)
-        )
-
-        # back substitution
-        def bwd(x_next, idx):
-            k = idx
-            x = dps[k] - cps[k] * x_next
-            return x, x
-
-        _, xs = jax.lax.scan(bwd, zeros, jnp.arange(nz), reverse=True)
-        return xs
-
-    return solve
+def _swap_vertical(coeffs: StencilCoeffs, topology: GridTopology):
+    """The vertical legs of T': T'[c, above(c)] = T[above(c), c] = the
+    bottom leg of the cell above, and vice versa."""
+    return coeffs._replace(
+        top=neighbor_values(coeffs.bottom, "top", topology, fill=0.0),
+        bottom=neighbor_values(coeffs.top, "bottom", topology, fill=0.0),
+    )
 
 
 def _bicgstab_matrix_free(a_op, b, M, tol, maxiter):
     """Right-preconditioned BiCGStab as a plain lax.while_loop.
 
     Same algorithm (and M semantics) as jax.scipy.sparse.linalg.bicgstab,
-    but WITHOUT the custom_linear_solve wrapper — that wrapper transposes
-    the matvec symbolically, which is impossible for an opaque Pallas
-    custom call. Used for the apply_impl='pallas' fast path.
+    but WITHOUT the custom_linear_solve wrapper — that wrapper traces the
+    preconditioner for transposition, which is impossible for an opaque
+    kernel call. Used for the apply_impl='pallas' path.
     """
     bnorm = jnp.linalg.norm(b)
     atol2 = (tol * bnorm) ** 2
@@ -141,37 +140,6 @@ def _bicgstab_matrix_free(a_op, b, M, tol, maxiter):
     return x
 
 
-def resolve_apply_impl(topology: GridTopology, dtype, apply_impl: str = "pallas",
-                       mesh=None, maxiter: int | None = None) -> str:
-    """The operator-application implementation `solve_shifted` (and the
-    other while_loop-based solvers) will ACTUALLY use for this
-    configuration — the machine-readable form of the demotion that
-    `solve_shifted` otherwise only logs:
-
-      * ``"pallas-halo"`` — mesh + pallas: the sharded shard_map Krylov
-        (`parallel/solve_halo.py`);
-      * ``"pallas"`` — the fused single-chip Pallas matvec;
-      * ``"jnp"`` — either requested directly, or the SILENT DEMOTION at
-        grid sizes where the Pallas matvec would be j-blocked inside a
-        `lax.while_loop` on a real TPU (see `blocked_unstable_in_while`);
-        at those sizes `solve_shifted_chunked` keeps the fused kernels
-        and is the fast path.
-
-    Callers that jit whole pipelines should check this BEFORE choosing a
-    solver; a demoted `solve_shifted` is ~1.5x slower per iteration than
-    the chunked engine.
-    """
-    if mesh is not None and apply_impl == "pallas":
-        return "pallas-halo"
-    if apply_impl == "pallas":
-        from ..ops.stencil_pallas import blocked_unstable_in_while
-
-        if blocked_unstable_in_while(topology, jnp.dtype(dtype).itemsize,
-                                     iters=maxiter):
-            return "jnp"
-    return apply_impl
-
-
 @partial(jax.jit, static_argnames=("topology", "method", "maxiter", "transpose",
                                    "preconditioner", "apply_impl", "mesh"))
 def solve_shifted(
@@ -201,87 +169,46 @@ def solve_shifted(
     check it against their tolerance; `solve_shifted_ir` does so and
     warns on refinement stagnation.
 
-    `apply_impl="pallas"` routes the inner operator application through
-    the fused Pallas stencil kernel — ~2x faster per Krylov iteration on
-    a single chip. With `mesh` set, `apply_impl="pallas"` runs the WHOLE
-    BiCGStab loop inside one shard_map region with the ppermute-halo +
-    shard-local-Pallas matvec (parallel/solve_halo.py — the multichip
-    production path); `apply_impl="jnp"` on a mesh relies on GSPMD
-    auto-partitioning of the jnp matvec instead. Transpose solves run the
-    forward kernel on `transpose_coeffs` (the stencil form of T').
+    `apply_impl="pallas"` takes the kernel route: the Thomas
+    preconditioner runs as the GPU kernel (`ops/tridiag_pallas.py`; the
+    plain scans on the CPU) inside a plain `lax.while_loop` BiCGStab.
+    With `mesh` set it runs the WHOLE BiCGStab loop inside one shard_map
+    region with the ppermute-halo matvec (parallel/solve_halo.py);
+    `apply_impl="jnp"` on a mesh relies on GSPMD auto-partitioning of the
+    jnp matvec instead. The matvec itself is XLA's fusion of
+    `apply_stencil` on every route.
     """
-    from ..ops.apply import apply_stencil_transpose
-
     b = jnp.asarray(b)
     if mesh is not None and apply_impl == "pallas":
         if method != "bicgstab":
             raise ValueError(
                 "mesh + apply_impl='pallas' requires method='bicgstab'"
             )
-        from ..parallel.solve_halo import solve_shifted_halo_pallas
+        from ..parallel.solve_halo import solve_shifted_halo
 
-        return solve_shifted_halo_pallas(
+        return solve_shifted_halo(
             coeffs, b, topology, mesh, shift=shift, extra_diag=extra_diag,
             tol=tol, maxiter=maxiter, transpose=transpose,
             preconditioner=preconditioner,
         )
+    if apply_impl not in ("pallas", "jnp"):
+        raise ValueError(f"unknown apply_impl {apply_impl!r}")
+    if apply_impl == "pallas" and method != "bicgstab":
+        raise ValueError("apply_impl='pallas' requires method='bicgstab'")
     # Cast to the RHS dtype: a wide extra_diag (e.g. f64 under x64)
     # must not silently promote the whole Krylov recurrence.
     extra = (0.0 if extra_diag is None
              else jnp.asarray(extra_diag, b.dtype))
-    resolved = resolve_apply_impl(topology, b.dtype, apply_impl, mesh=None,
-                                  maxiter=maxiter)
-    if resolved != apply_impl:
-        # See blocked_unstable_in_while: prefer solve_shifted_chunked
-        # at this size; inside this jitted entry the only safe
-        # fallback is the XLA-fused jnp matvec (~1.5x per iteration).
-        # Machine-readable signal: call `resolve_apply_impl` with the
-        # same arguments before solving.
-        import logging
-
-        logging.getLogger(__name__).warning(
-            "apply_impl='pallas' would use the j-blocked kernel inside "
-            "a while_loop, which is unproven at this grid size on TPU; "
-            "falling back to the jnp matvec (use solve_shifted_chunked "
-            "for the fast path; resolve_apply_impl() reports this "
-            "demotion programmatically)"
-        )
-        apply_impl = resolved
-    if apply_impl == "pallas":
-        if method != "bicgstab":
-            raise ValueError(
-                "apply_impl='pallas' requires method='bicgstab' (jax.scipy "
-                "gmres transposes the matvec, impossible for a Pallas call)"
-            )
-        from ..ops.apply import transpose_coeffs
-        from ..ops.stencil_pallas import apply_stencil_pallas
-
-        apply = apply_stencil_pallas
-        apply_coeffs = transpose_coeffs(coeffs, topology) if transpose else coeffs
-    elif transpose:
-        apply = apply_stencil_transpose
-        apply_coeffs = coeffs
-    else:
-        apply = apply_stencil
-        apply_coeffs = coeffs
+    apply = apply_stencil_transpose if transpose else apply_stencil
 
     def a_op(x):
-        return shift * x + extra * x + apply(apply_coeffs, x, topology)
+        return shift * x + extra * x + apply(coeffs, x, topology)
 
     shifted_diag = shift + extra + coeffs.diag
+    route = kernel_route() if apply_impl == "pallas" else "jnp"
     if preconditioner == "tridiag":
-        if transpose:
-            # Transpose of the vertical tridiagonal: T'[c, above(c)] =
-            # T[above(c), c] = bottom-leg of the cell above, and vice versa.
-            from ..grid.topology import neighbor_values as _nv
-
-            swapped = coeffs._replace(
-                top=_nv(coeffs.bottom, "top", topology, fill=0.0),
-                bottom=_nv(coeffs.top, "bottom", topology, fill=0.0),
-            )
-            precond = _tridiag_preconditioner(swapped, shifted_diag)
-        else:
-            precond = _tridiag_preconditioner(coeffs, shifted_diag)
+        m_coeffs = _swap_vertical(coeffs, topology) if transpose else coeffs
+        precond = _tridiag_preconditioner(m_coeffs, shifted_diag, route)
     elif preconditioner == "jacobi":
         precond = _jacobi_preconditioner(shifted_diag)
     else:
@@ -289,9 +216,10 @@ def solve_shifted(
 
     if method == "bicgstab":
         if apply_impl == "pallas":
-            # jax.scipy's bicgstab wraps the matvec in custom_linear_solve,
-            # which transposes it symbolically — impossible for the opaque
-            # Pallas call. Same algorithm, plain while_loop.
+            # jax.scipy's bicgstab wraps the loop in custom_linear_solve,
+            # which traces the preconditioner for transposition; an
+            # opaque kernel call has no transpose. Same algorithm, plain
+            # while_loop.
             x = _bicgstab_matrix_free(a_op, b, precond, tol, maxiter)
         else:
             x, _ = bicgstab(a_op, b, tol=tol, atol=0.0, M=precond,
@@ -319,7 +247,7 @@ def implicit_euler_step(
 ):
     """One implicit Euler step: solve (I + dt T) chi_next = chi.
 
-    Unconditionally stable — the TPU-native replacement for the
+    Unconditionally stable — the matrix-free replacement for the
     reference's implicit solves with the assembled sparse matrix.
     """
     chi = jnp.asarray(chi)
@@ -396,13 +324,13 @@ def solve_shifted_ir(
     Single-precision Krylov on this operator stagnates at relative
     residuals around 1e-3..1e-4 (age fields reach ~1e9 s while |T| rows
     are ~1e-3 1/s, so f32 matvec roundoff floors the recurrence). The
-    classic fix, natural on TPU: keep the Krylov inner solve in fast f32
-    (optionally through the Pallas kernel), and wrap it in a defect-
-    correction loop whose residual r = b - A x is evaluated in f64 —
-    XLA emulates f64 on TPU at only ~6x the f32 matvec cost, and only
-    two f64 matvecs per refinement are needed. Each refinement contracts
-    the error by roughly the inner solve's relative accuracy, so a
-    handful of refinements reach f64-level residuals at f32 speed.
+    classic fix: keep the Krylov inner solve in f32 and wrap it in a
+    defect-correction loop whose residual r = b - A x is evaluated in
+    f64 — only two f64 matvecs per refinement are needed. Each
+    refinement contracts the error by roughly the inner solve's relative
+    accuracy, so a handful of refinements reach f64-level residuals at
+    f32 cost. (Whether plain f64 Krylov is as fast on a card with native
+    f64 is an open question: ROADMAP S4.)
 
     Requires `jax.config jax_enable_x64` for true f64 residuals; without
     it the loop degrades to restarted f32 refinement (still tighter than
@@ -420,8 +348,8 @@ def solve_shifted_ir(
     The refinement loop runs on the host (one compiled defect step + one
     compiled inner solve per refinement, a scalar fetch in between): a
     fully fused nested-while formulation overflows CPython's C-stack
-    guard when tracing the Pallas kernel inside two while_loop levels,
-    and a handful of extra dispatches is negligible against solve time.
+    guard when tracing inside two while_loop levels, and a handful of
+    extra dispatches is negligible against solve time.
     """
     if not jax.config.jax_enable_x64:
         import warnings
@@ -450,48 +378,39 @@ def solve_shifted_ir(
     shift_wide = jnp.asarray(shift, wide)
 
     # ||b|| in narrow precision (never below f32), promoted as a SCALAR:
-    # the wide norm of the full grid vector is an emulated-f64 reduction
-    # at blocked scale, and bnorm only ever normalizes reported
-    # residuals — a ~1e-7 relative rounding in the denominator shifts
-    # every rel multiplicatively by the same factor, which affects no
-    # convergence decision (tol comparisons are against the same
-    # normalization throughout).
+    # bnorm only ever normalizes reported residuals — a ~1e-7 relative
+    # rounding in the denominator shifts every rel by the same factor,
+    # which affects no convergence decision (tol comparisons are against
+    # the same normalization throughout).
     bnorm = jnp.linalg.norm(b_n.astype(narrow_vec)).astype(wide)
     bnorm_safe = jnp.where(bnorm == 0, 1.0, bnorm)
 
-    # At grid sizes where the Pallas matvec is j-blocked on a real TPU,
-    # the inner f32 solves go through the host-chunked fori_loop Krylov
-    # (the while_loop solvers would demote to the jnp matvec there; see
-    # `_use_chunked`). Same solver contract, ~1.5x faster per iteration.
-    # The chunked engine is BiCGStab-only: honor an explicit
-    # method='gmres' request with the (slower) while_loop path instead
-    # of silently switching algorithms.
+    # On large grids the inner f32 solves go through the host-chunked
+    # BiCGStab(2) engine (see `_use_chunked`). It is BiCGStab-only:
+    # honor an explicit method='gmres' request with the while_loop path
+    # instead of silently switching algorithms.
     chunked_inner = (method == "bicgstab"
-                     and _use_chunked(apply_impl, mesh, False, topology,
-                                      narrow))
-    # Mesh analogue: at shard-blocked sizes the while_loop halo solver
-    # is the unproven runtime pattern; route the inner f32 solves
-    # through the sharded fori-chunked engine instead.
+                     and _use_chunked(apply_impl, mesh, False, topology))
+    # Mesh analogue: large shards take the sharded chunked engine.
     halo_chunked_inner = (method == "bicgstab"
                           and _use_halo_chunked(apply_impl, mesh, False,
-                                                topology, narrow))
+                                                topology))
     if method != "bicgstab" and _use_chunked(apply_impl, mesh, False,
-                                             topology, narrow):
+                                             topology):
         import warnings
 
         warnings.warn(
             f"solve_shifted_ir: method={method!r} prevents the chunked "
-            "BiCGStab fast path at this grid size; the inner solves will "
-            "use the jnp matvec (see solve_shifted's while_loop guard)",
+            "BiCGStab(2) engine at this grid size; the inner solves use "
+            "the while_loop solver",
             stacklevel=2,
         )
-    # Per-pass inner iteration budget. At blocked (scale-out) sizes one
-    # Krylov iteration costs tens of milliseconds and the later defect
+    # Per-pass inner iteration budget. On large grids the later defect
     # systems routinely stagnate: their useful contraction happens in
     # the first few hundred iterations, so an uncapped budget turns each
-    # stagnating pass into minutes of wasted chunks (measured on v5e at
-    # 0.25 degree). 600 holds the measured useful-work envelope there;
-    # small grids converge long before any cap matters.
+    # stagnating pass into a long run of wasted chunks. 600 held the
+    # useful-work envelope at 0.25 degree; small grids converge long
+    # before any cap matters.
     if inner_maxiter is None:
         inner_maxiter = (min(maxiter, 600)
                          if (chunked_inner or halo_chunked_inner)
@@ -528,14 +447,11 @@ def solve_shifted_ir(
         r_hat = d = None
         if _pass_i == 0:
             # x == 0 exactly, so the defect IS b: skip the wide apply
-            # (one emulated-f64 stencil pass costs seconds at the
-            # 0.25-degree scale), and normalize in b's own (narrow)
-            # dtype — the emulated-f64 norm+divide of the grid vector
-            # costs ~7 s at 0.25 degree. Consistency is what matters
-            # for correctness: s_safe and the rhs normalization use the
-            # SAME value, so norm rounding cancels in the update
-            # x += s_safe * d; it only shifts the reported rel by
-            # O(norm rounding), multiplicatively.
+            # and normalize in b's own (narrow) dtype. Consistency is
+            # what matters for correctness: s_safe and the rhs
+            # normalization use the SAME value, so norm rounding cancels
+            # in the update x += s_safe * d; it only shifts the reported
+            # rel by O(norm rounding), multiplicatively.
             b_nv = b_n.astype(narrow_vec)  # never below f32
             bn_n = jnp.linalg.norm(b_nv)
             bn_n_safe = jnp.where(bn_n == 0, 1.0, bn_n)
@@ -624,15 +540,13 @@ def solve_shifted_ir(
             # max_restarts=0: each refinement pass already starts a
             # fresh Krylov space on the f64-corrected defect — the outer
             # loop IS the restart mechanism, and inner restarts just
-            # push stalled passes to the full budget (measured: 439 s vs
-            # 170 s for the 0.25-degree age with restarts on/off). The
-            # stall-exit (3-chunk window) caps a stagnating pass at
-            # ~150 wasted iterations instead. inner_algorithm defaults
-            # to bicgstab2: the defect systems stall BiCGStab(1) via
-            # omega breakdowns on the advective spectrum, while
-            # BiCGStab(l=2)'s 2D minimal-residual polish converges them
-            # (measured at 0.25 degree: 396 s to 1.1e-6 vs 440-880 s to
-            # ~7e-6 across BiCGStab(1) runs).
+            # push stalled passes to the full budget. The stall-exit
+            # (3-chunk window) caps a stagnating pass at ~150 wasted
+            # iterations instead. inner_algorithm defaults to
+            # bicgstab2: the defect systems stall BiCGStab(1) via omega
+            # breakdowns on the advective spectrum, while BiCGStab(l=2)'s
+            # 2D minimal-residual polish converges them (at 0.25 degree
+            # it reached 1.1e-6 where BiCGStab(1) runs ended near 7e-6).
             inner_stats = {}
             d, _ = solve_shifted_chunked(
                 coeffs, rhs, topology, shift=shift,
@@ -714,44 +628,30 @@ def solve_shifted_ir(
     return x, rel
 
 
-def _use_chunked(apply_impl, mesh, refine, topology, dtype) -> bool:
-    """True when a steady-state solve should use the host-chunked Pallas
-    Krylov: apply_impl='pallas' on a real TPU at a grid size where the
-    matvec is j-blocked — the while_loop-based solvers would demote to
-    the jnp matvec there (see solve_shifted's guard), while fori-chunked
-    blocked kernels are stable and ~1.5x faster per iteration."""
-    if apply_impl != "pallas" or mesh is not None or refine:
+#: Horizontal cells (ny * nx) of one device's grid from which the
+#: steady-state entry points take the host-chunked BiCGStab(2) engines.
+#: On the 0.25-degree grid (1440 x 1080) the raw f32 age system breaks
+#: BiCGStab(1)'s recurrence down to NaN (omega breakdowns on the
+#: advective spectrum) while BiCGStab(2)'s cycles converge it; the
+#: 1-degree grid (360 x 300) and a 0.25-degree shard of a 2 x 2 mesh
+#: (720 x 540) converge with the while_loop BiCGStab.
+CHUNKED_MIN_COLUMNS = 2**19
+
+
+def _use_chunked(apply_impl, mesh, refine, topology) -> bool:
+    """True when a non-refined single-device steady-state solve takes
+    the host-chunked BiCGStab(2) engine (see `CHUNKED_MIN_COLUMNS`)."""
+    return (apply_impl == "pallas" and mesh is None and not refine
+            and topology.ny * topology.nx >= CHUNKED_MIN_COLUMNS)
+
+
+def _use_halo_chunked(apply_impl, mesh, refine, topology) -> bool:
+    """Mesh analogue of `_use_chunked`, on the per-shard grid."""
+    if apply_impl != "pallas" or mesh is None or refine:
         return False
-    from ..ops.stencil_pallas import blocked_unstable_in_while
-
-    return blocked_unstable_in_while(topology, jnp.dtype(dtype).itemsize)
-
-
-def _shard_blocked(topology, mesh, dtype) -> bool:
-    """True when the PER-SHARD grid of `topology` decomposed over `mesh`
-    would resolve to the j-blocked stencil kernel on a real TPU — the
-    size class at which this repo refuses Pallas-in-while_loop (see
-    `blocked_unstable_in_while`) and mesh solves must route through the
-    fori-chunked `parallel.solve_halo_chunked` engine instead of the
-    while_loop `parallel.solve_halo` one."""
-    if mesh is None:
-        return False
-    from ..ops.stencil_pallas import blocked_unstable_in_while
-
-    my = mesh.shape.get("y", 1)
-    mx = mesh.shape.get("x", 1)
-    sub = topology.__class__(
-        kind=topology.kind, nx=max(1, topology.nx // mx),
-        ny=max(1, topology.ny // my), nz=topology.nz,
-    )
-    return blocked_unstable_in_while(sub, jnp.dtype(dtype).itemsize)
-
-
-def _use_halo_chunked(apply_impl, mesh, refine, topology, dtype) -> bool:
-    """Mesh analogue of `_use_chunked`: route non-refined mesh solves
-    through the sharded host-chunked engine at shard-blocked sizes."""
-    return (apply_impl == "pallas" and mesh is not None and not refine
-            and _shard_blocked(topology, mesh, dtype))
+    shard_cols = (max(1, topology.ny // mesh.shape.get("y", 1))
+                  * max(1, topology.nx // mesh.shape.get("x", 1)))
+    return shard_cols >= CHUNKED_MIN_COLUMNS
 
 
 def ideal_age(
@@ -774,25 +674,23 @@ def ideal_age(
 
     Returns (gamma3d_seconds, residual_norm). Divide by 365.25*24*3600
     for years. `refine=True` wraps the solve in mixed-precision
-    iterative refinement (see `solve_shifted_ir`) — use it on TPU, where
-    f32 Krylov alone floors around 1e-4 relative residual.
+    iterative refinement (see `solve_shifted_ir`) — use it for f32
+    operators, where Krylov alone floors around 1e-4 relative residual.
     """
     wet = jnp.asarray(wet3d, bool)
     dtype = coeffs.diag.dtype
     ones = jnp.where(wet, jnp.ones(wet.shape, dtype), 0.0)
     surf = jnp.zeros(wet.shape, dtype).at[0].set(surface_rate)
     surf = jnp.where(wet, surf, 0.0)
-    if _use_chunked(apply_impl, mesh, refine, topology, dtype):
+    if _use_chunked(apply_impl, mesh, refine, topology):
         # BiCGStab(2): the raw f32 age system NaNs BiCGStab(1)'s
-        # recurrence on stiff grids (omega breakdowns on the advective
-        # spectrum), while the l=2 cycles converge it — and the fused
-        # Krylov-step kernel makes them the fastest engine.
+        # recurrence on stiff grids (see CHUNKED_MIN_COLUMNS).
         gamma, res = solve_shifted_chunked(
             coeffs, ones, topology, shift=0.0, extra_diag=surf, tol=tol,
             algorithm="bicgstab2", stats=stats,
         )
         return jnp.where(wet, gamma, jnp.nan), res
-    if _use_halo_chunked(apply_impl, mesh, refine, topology, dtype):
+    if _use_halo_chunked(apply_impl, mesh, refine, topology):
         from ..parallel.solve_halo_chunked import solve_shifted_halo_chunked
 
         gamma, res = solve_shifted_halo_chunked(
@@ -839,13 +737,13 @@ def sequestration_time(
     ones = jnp.where(wet, jnp.ones(wet.shape, dtype), 0.0)
     surf = jnp.zeros(wet.shape, dtype).at[0].set(surface_rate)
     surf = jnp.where(wet, surf, 0.0)
-    if _use_chunked(apply_impl, mesh, refine, topology, dtype):
+    if _use_chunked(apply_impl, mesh, refine, topology):
         gamma, res = solve_shifted_chunked(
             coeffs, ones, topology, shift=0.0, extra_diag=surf, tol=tol,
             transpose=True, algorithm="bicgstab2", stats=stats,
         )
         return jnp.where(wet, gamma, jnp.nan), res
-    if _use_halo_chunked(apply_impl, mesh, refine, topology, dtype):
+    if _use_halo_chunked(apply_impl, mesh, refine, topology):
         from ..parallel.solve_halo_chunked import solve_shifted_halo_chunked
 
         gamma, res = solve_shifted_halo_chunked(
@@ -873,7 +771,7 @@ def _bicgstab_matrix_free_multi(a_op, bs, M, tol, maxiter):
 
     Each batch member carries its own Krylov scalars; the matvec is the
     BATCHED operator application (the whole point: coefficient streams
-    shared across the batch, ops/stencil_pallas multi kernels). The loop
+    shared across the batch, ops/stencil_pallas.py). The loop
     runs until every member meets its own tolerance; converged members
     idle harmlessly (their alpha/omega collapse to ~0 through the
     zero-division guards) and the final residuals are recomputed from
@@ -930,31 +828,23 @@ def solve_shifted_multi(
     transpose: bool = False,
     preconditioner: str = "tridiag",
     apply_impl: str = "pallas",
-    interpret: bool | None = None,
+    interpret: bool = False,
 ):
     """Solve (shift*I + D_extra + T) x_b = b_b for a BATCH of right-hand
     sides (bs is (B, nz, ny, nx)) in one lockstep BiCGStab.
 
-    All B solves share the same operator, so the matvec runs through the
-    batched Pallas kernel family (coefficient streams fetched once per k
-    level and shared across the batch — per-solve matvec traffic
-    2 + 7/B streams instead of 9) and the tridiagonal preconditioner is
-    vmapped over the batch. This is the natural engine for families of
-    steady states against one circulation: water-mass-fraction tracers,
-    dye releases from multiple regions, ensembles of boundary
-    conditions. Returns (xs, residuals) with residuals shape (B,),
-    recomputed from scratch.
+    All B solves share the same operator, so with `apply_impl="pallas"`
+    the matvec runs through the batched stencil kernel (coefficients
+    read once per tile and shared across the batch — per-solve matvec
+    traffic 2 + 7/B streams instead of 9) and the Thomas preconditioner
+    through its kernel, both on the route `kernel_route(interpret)`
+    gives. This is the natural engine for families of steady states
+    against one circulation: water-mass-fraction tracers, dye releases
+    from multiple regions, ensembles of boundary conditions. Returns
+    (xs, residuals) with residuals shape (B,), recomputed from scratch.
 
-    `apply_impl="jnp"` uses the (natively batched) jnp apply instead —
-    the CPU/f64 validation path."""
-    from ..ops.apply import transpose_coeffs
-    from ..ops.stencil_pallas import (
-        _default_interpret,
-        apply_stencil_pallas_multi,
-    )
-
-    if interpret is None:
-        interpret = _default_interpret()
+    `apply_impl="jnp"` uses the (natively batched) jnp apply and scans —
+    the path GSPMD can partition over a mesh."""
     bs = jnp.asarray(bs)
     if bs.ndim != 4:
         raise ValueError(f"bs must be (B, nz, ny, nx); got {bs.shape}")
@@ -965,57 +855,19 @@ def solve_shifted_multi(
              else jnp.asarray(extra_diag, bs.dtype))
 
     apply_coeffs = transpose_coeffs(coeffs, topology) if transpose else coeffs
+    route = kernel_route(interpret) if apply_impl == "pallas" else "jnp"
 
-    if apply_impl == "pallas" and not interpret:
-        from ..ops.stencil_pallas import (
-            _multi_vmem_ok,
-            blocked_unstable_in_while,
-        )
-
-        if (not _multi_vmem_ok(bs.shape[0], topology, bs.dtype.itemsize)
-                or blocked_unstable_in_while(topology, bs.dtype.itemsize,
-                                             iters=maxiter)):
-            # Same while_loop guard as solve_shifted (see
-            # blocked_unstable_in_while) — use the (natively batched)
-            # jnp matvec here; the fast path at blocked sizes is
-            # solve_shifted_chunked_multi.
-            import logging
-
-            logging.getLogger(__name__).warning(
-                "solve_shifted_multi: batched Pallas matvec would need a "
-                "j-blocked kernel inside the Krylov while_loop (unproven "
-                "at this grid size on TPU); falling back to the jnp matvec"
-                " (use solve_shifted_chunked_multi for the fast path)"
-            )
-            apply_impl = "jnp"
-
-    if apply_impl == "pallas":
-        def a_op(xs):
-            txs = apply_stencil_pallas_multi(
-                apply_coeffs, xs, topology, interpret
-            )
-            return shift * xs + extra * xs + txs
-    else:
-        def a_op(xs):
-            txs = apply_stencil(apply_coeffs, xs, topology)
-            return shift * xs + extra * xs + txs
+    def a_op(xs):
+        txs = apply_stencil_pallas_multi(apply_coeffs, xs, topology, route)
+        return shift * xs + extra * xs + txs
 
     shifted_diag = shift + extra + coeffs.diag
     if preconditioner == "tridiag":
-        if transpose:
-            from ..grid.topology import neighbor_values as _nv
-
-            swapped = coeffs._replace(
-                top=_nv(coeffs.bottom, "top", topology, fill=0.0),
-                bottom=_nv(coeffs.top, "bottom", topology, fill=0.0),
-            )
-            M1 = _tridiag_preconditioner(swapped, shifted_diag)
-        else:
-            M1 = _tridiag_preconditioner(coeffs, shifted_diag)
-        M = jax.vmap(M1)
+        m_coeffs = _swap_vertical(coeffs, topology) if transpose else coeffs
+        M = _tridiag_preconditioner(m_coeffs, shifted_diag, route)
     elif preconditioner == "jacobi":
-        M1 = _jacobi_preconditioner(shifted_diag)
-        M = M1  # elementwise; broadcasts over the batch
+        # elementwise; broadcasts over the batch
+        M = _jacobi_preconditioner(shifted_diag)
     else:
         raise ValueError(f"unknown preconditioner {preconditioner!r}")
 
@@ -1063,17 +915,10 @@ def water_mass_fractions(
     surf = jnp.zeros(wet.shape, dtype).at[0].set(surface_rate)
     surf = jnp.where(wet, surf, 0.0)
     bs = jnp.where(wet[None] & masks[:, None, :, :], surf[None], 0.0)
-    from ..ops.stencil_pallas import blocked_unstable_in_while
-
-    if (apply_impl == "pallas"
-            and blocked_unstable_in_while(topology,
-                                          jnp.dtype(dtype).itemsize)):
-        # Blocked-kernel grid sizes (e.g. 0.25 degree): the while_loop
-        # solver would demote to the jnp matvec; the host-chunked
-        # batched Krylov keeps the fused batched Pallas kernels.
-        # BiCGStab(2) cycles: the advective spectra that stall
-        # BiCGStab(1) at this scale (see solve_shifted_ir) affect the
-        # dye systems the same way.
+    if _use_chunked(apply_impl, None, False, topology):
+        # Large grids: the host-chunked batched BiCGStab(2) engine (the
+        # advective spectra that stall BiCGStab(1) there affect the dye
+        # systems the same way; see CHUNKED_MIN_COLUMNS).
         fr, res = solve_shifted_chunked_multi(
             coeffs, bs, topology, shift=0.0, extra_diag=surf, tol=tol,
             preconditioner=preconditioner, algorithm="bicgstab2",
@@ -1092,42 +937,29 @@ def water_mass_fractions(
 # These were originally nested closures inside solve_shifted_chunked /
 # solve_shifted_chunked_multi — which meant every SOLVE created fresh
 # function objects and jax.jit recompiled the whole chunk program per
-# call (~4 s at the 0.25-degree size; the refined ideal age runs 5-7
-# inner solves, so ~25 s of pure recompilation per workload, measured on
-# v5e). Module-level definitions share one jit cache across solves; the
-# former closure variables (topology, preconditioner, interpret) are
-# trailing static arguments.
+# call (and the refined ideal age runs 5-7 inner solves). Module-level definitions share one jit cache across
+# solves; the former closure variables (topology, preconditioner, route)
+# are trailing static arguments.
 
 
-def _mk_M(mc_l, md_l, preconditioner: str, interpret: bool):
-    """The preconditioner apply for the chunk programs: fused Pallas
-    Thomas (both sweeps in VMEM, 5 HBM streams) or Jacobi."""
+def _mk_M(mc_l, md_l, preconditioner: str, route: str):
+    """The preconditioner apply for the chunk programs: the Thomas solve
+    on `route` (one field or a batch), or Jacobi."""
     if preconditioner == "tridiag":
-        from ..ops.tridiag_pallas import tridiag_solve_pallas
-
-        guarded = jnp.where(md_l != 0, md_l, jnp.ones((), md_l.dtype))
-
-        def M(v):
-            return tridiag_solve_pallas(
-                mc_l.bottom, guarded, mc_l.top, v, interpret=interpret
-            )
-
-        return M
+        return _tridiag_preconditioner(mc_l, md_l, route)
     return _jacobi_preconditioner(md_l)
 
 
 @partial(jax.jit, static_argnums=(4, 5, 6, 7), donate_argnums=(3,))
 def _sr_chunk1(c_l, mc_l, md_l, state, nsteps: int, topology: GridTopology,
-               preconditioner: str, interpret: bool):
+               preconditioner: str, route: str):
     """`nsteps` BiCGStab(1) iterations as one fori_loop program.
     Device arrays are jit ARGUMENTS (closures would bake multi-GB
     constants into the program); the Krylov state is donated."""
-    from ..ops.stencil_pallas import apply_stencil_pallas
-
-    M = _mk_M(mc_l, md_l, preconditioner, interpret)
+    M = _mk_M(mc_l, md_l, preconditioner, route)
 
     def a_op(x):
-        return apply_stencil_pallas(c_l, x, topology, interpret)
+        return apply_stencil(c_l, x, topology)
 
     def body(_, st):
         x, r, p, rhat0, rho = st
@@ -1205,100 +1037,27 @@ def _bicgstab2_cycles(K, guard, state, ncycles):
 
 @partial(jax.jit, static_argnums=(4, 5, 6, 7), donate_argnums=(3,))
 def _sr_chunk2(c_l, mc_l, md_l, state, ncycles: int, topology: GridTopology,
-               preconditioner: str, interpret: bool):
-    from ..ops.stencil_pallas import apply_stencil_pallas
-
-    M = _mk_M(mc_l, md_l, preconditioner, interpret)
+               preconditioner: str, route: str):
+    M = _mk_M(mc_l, md_l, preconditioner, route)
 
     def K(v):
-        return apply_stencil_pallas(c_l, M(v), topology, interpret)
+        return apply_stencil(c_l, M(v), topology)
 
     one = jnp.ones((), state[0].dtype)
     guard = lambda d: jnp.where(d == 0, one, d)
     return _bicgstab2_cycles(K, guard, state, ncycles)
 
 
-@partial(jax.jit, static_argnums=(5, 6, 7), donate_argnums=(4,))
-def _sr_chunk2_fused(c_l, mc_l, md_l, m_rows_l, state, ncycles: int,
-                     topology: GridTopology, interpret: bool):
-    """BiCGStab(2) cycles on the FUSED Krylov-step kernel
-    (ops/krylov_pallas.py): each half-iteration's vector combination,
-    Thomas preconditioner apply, stencil matvec, and <rhat, .> dot run
-    as ONE two-phase HBM sweep (~13 streams) instead of four separate
-    passes (~19 streams) — the round-4 verdict's "fuse the Krylov
-    vector algebra" item. Algebra identical to `_sr_chunk2`; only the
-    dots' summation order differs (per-block f32 partials). Measured
-    2.1x round 4's per-iteration cost at 0.25 degree (30.7 vs 63.6
-    ms/iter, device trace)."""
-    from ..ops.krylov_pallas import fused_krylov_step
-
-    guarded = jnp.where(md_l != 0, md_l, jnp.ones((), md_l.dtype))
-    m_lo, m_up = mc_l.bottom, mc_l.top
-    dtype = state[0].dtype
-    one = jnp.ones((), dtype)
-    guard = lambda d: jnp.where(d == 0, one, d)
-
-    def fk(x1, x2, cc, rhat=None):
-        z, out, d = fused_krylov_step(
-            c_l, m_lo, guarded, m_up, x1, x2, cc, rhat,
-            topology, interpret=interpret,
-            with_combine=x2 is not None, with_dot=rhat is not None,
-            m_rows=m_rows_l,
-        )
-        return z, out, (None if d is None else d.astype(dtype))
-
-    def cycle(_, st):
-        y, r0, u0, rhat, rho0, alpha, omega = st
-        rho0 = -omega * rho0
-        # BiCG step j = 0
-        rho1 = jnp.vdot(rhat, r0)
-        beta = alpha * rho1 / guard(rho0)
-        rho0 = rho1
-        u0, u1, d1 = fk(r0, u0, -beta, rhat)
-        alpha = rho0 / guard(d1)
-        r0, r1, d2 = fk(r0, u1, -alpha, rhat)
-        y = y + alpha * u0
-        # BiCG step j = 1
-        rho1 = d2
-        beta = alpha * rho1 / guard(rho0)
-        rho0 = rho1
-        u0 = r0 - beta * u0
-        u1, u2, d3 = fk(r1, u1, -beta, rhat)
-        alpha = rho0 / guard(d3)
-        r0 = r0 - alpha * u1
-        r1, r2, _ = fk(r1, u2, -alpha, None)
-        y = y + alpha * u0
-        # 2D minimal-residual polish: min ||r0 - w1 r1 - w2 r2||
-        t11 = jnp.vdot(r1, r1)
-        t12 = jnp.vdot(r1, r2)
-        t22 = jnp.vdot(r2, r2)
-        s1 = jnp.vdot(r0, r1)
-        s2 = jnp.vdot(r0, r2)
-        det = guard(t11 * t22 - t12 * t12)
-        w1 = (t22 * s1 - t12 * s2) / det
-        w2 = (t11 * s2 - t12 * s1) / det
-        y = y + w1 * r0 + w2 * r1
-        r0 = r0 - w1 * r1 - w2 * r2
-        u0 = u0 - w1 * u1 - w2 * u2
-        return (y, r0, u0, rhat, rho0, alpha, w2)
-
-    state = jax.lax.fori_loop(0, ncycles, cycle, state)
-    rnorm2 = jnp.vdot(state[1], state[1]).real
-    return state, rnorm2
-
-
 @partial(jax.jit, static_argnums=(4, 5))
-def _sr_apply_M(mc_l, md_l, c_l, y_l, preconditioner: str, interpret: bool):
-    return _mk_M(mc_l, md_l, preconditioner, interpret)(y_l)
+def _sr_apply_M(mc_l, md_l, c_l, y_l, preconditioner: str, route: str):
+    return _mk_M(mc_l, md_l, preconditioner, route)(y_l)
 
 
 @partial(jax.jit, static_argnums=(5, 6, 7, 8))
 def _sr_restart2(c_l, mc_l, md_l, y_l, b_l, topology: GridTopology,
-                 preconditioner: str, interpret: bool, jitter: int = 0):
-    from ..ops.stencil_pallas import apply_stencil_pallas
-
-    M = _mk_M(mc_l, md_l, preconditioner, interpret)
-    r = b_l - apply_stencil_pallas(c_l, M(y_l), topology, interpret)
+                 preconditioner: str, route: str, jitter: int = 0):
+    M = _mk_M(mc_l, md_l, preconditioner, route)
+    r = b_l - apply_stencil(c_l, M(y_l), topology)
     zero = jnp.zeros((), b_l.dtype)
     return (y_l + 0.0, r, jnp.zeros_like(r), _jitter_rhat(r, jitter),
             jnp.ones((), b_l.dtype), zero, jnp.ones((), b_l.dtype))
@@ -1329,11 +1088,9 @@ def _jitter_rhat(r, jitter):
 
 
 @partial(jax.jit, static_argnums=(3, 4, 5))
-def _sr_restart1(c_l, x_l, b_l, topology: GridTopology, interpret: bool,
+def _sr_restart1(c_l, x_l, b_l, topology: GridTopology, route: str,
                  jitter: int = 0):
-    from ..ops.stencil_pallas import apply_stencil_pallas
-
-    r = b_l - apply_stencil_pallas(c_l, x_l, topology, interpret)
+    r = b_l - apply_stencil(c_l, x_l, topology)
     # x copied out of best_x's buffer: the returned state is donated
     # into the next chunk while best_x must survive.
     return (x_l + 0.0, r, r + 0.0, _jitter_rhat(r, jitter),
@@ -1341,10 +1098,8 @@ def _sr_restart1(c_l, x_l, b_l, topology: GridTopology, interpret: bool,
 
 
 @partial(jax.jit, static_argnums=(3, 4))
-def _sr_final_res(c_l, x_l, b_l, topology: GridTopology, interpret: bool):
-    from ..ops.stencil_pallas import apply_stencil_pallas
-
-    r = apply_stencil_pallas(c_l, x_l, topology, interpret) - b_l
+def _sr_final_res(c_l, x_l, b_l, topology: GridTopology, route: str):
+    r = apply_stencil(c_l, x_l, topology) - b_l
     bn = jnp.sqrt(jnp.vdot(b_l, b_l).real)
     return jnp.sqrt(jnp.vdot(r, r).real) / jnp.where(bn == 0, 1.0, bn)
 
@@ -1360,18 +1115,17 @@ def solve_shifted_chunked(
     chunk: int = 50,
     transpose: bool = False,
     preconditioner: str = "tridiag",
-    interpret: bool | None = None,
+    interpret: bool = False,
     verbose: bool = False,
     early_stop: bool = True,
     max_restarts: int = 2,
     algorithm: str = "bicgstab",
     stats: dict | None = None,
-    fused: bool | None = None,
     max_diverge_restarts: int = 2,
 ):
     """`solve_shifted` with the Krylov loop split into host-controlled
-    fori_loop chunks, for grids where the Pallas matvec resolves to the
-    j-blocked kernel.
+    fori_loop chunks, for large grids (see `CHUNKED_MIN_COLUMNS`). The
+    Thomas preconditioner runs on `kernel_route(interpret)`.
 
     `max_diverge_restarts` bounds the DIVERGENCE-specific restarts
     (independent of `max_restarts`, which refinement callers set to 0
@@ -1380,19 +1134,11 @@ def solve_shifted_chunked(
     trajectory — a diverged pass restarted verbatim from the same
     iterate is deterministic and blows up identically.
 
-    `fused` (default: auto) routes `algorithm="bicgstab2"` iterations
-    through the fused Krylov-step kernel (`ops/krylov_pallas.py`): each
-    half-iteration's vector combination + Thomas apply + stencil matvec
-    + dot in ONE HBM sweep. Auto-enables with the tridiag
-    preconditioner whenever the grid admits a legal fused j-block; pass
-    False to force the separate-pass composition (A/B benching).
-
     `stats`, if given a dict, is filled with per-solve diagnostics:
     ``iters`` (matvec-pairs used), ``restarts``, ``stop`` (one of
     "converged" / "stall" / "diverged" / "maxiter"), ``start_rel`` /
     ``end_rel`` (recurrence residuals) — so a slow solve's time budget
-    is attributable from the artifact alone (round-4 verdict: the
-    170-880 s solve variance was undiagnosable).
+    is attributable from the artifact alone.
 
     In-pass DIVERGENCE exit: a chunk sequence whose recurrence residual
     rises above 4x its pass-start value (or goes NaN) is aborted
@@ -1414,24 +1160,15 @@ def solve_shifted_chunked(
     algorithms. The solve runs right-preconditioned in y-space
     (K = A o M, x = M y).
 
-    On this TPU runtime the j-blocked kernel inside `lax.while_loop`
-    crashes/hangs the worker, but the SAME kernel inside `lax.fori_loop`
-    is stable (the 0.25-degree propagation loop runs at roofline). So:
-    run `chunk` BiCGStab iterations per jitted fori_loop call and check
-    convergence on the host between chunks (one scalar fetch each, ~1.5x
-    faster per iteration than the jnp-matvec fallback at 0.25 degree).
-    Not wrapped in jit — callers that jit whole pipelines should use
+    Each jitted fori_loop call runs `chunk` iterations; the host checks
+    convergence between chunks (one scalar fetch each) and applies the
+    restart logic above. Whether an on-device `while_loop` would serve
+    as well is ROADMAP S6. Not wrapped in jit — callers that jit whole pipelines should use
     `solve_shifted`; this is the standalone/driver path used by
-    `ideal_age`/`sequestration_time` at blocked scale. Same contract:
+    `ideal_age`/`sequestration_time` on large grids. Same contract:
     returns (x, relative_residual) with the residual recomputed from
     scratch."""
-    from functools import partial as _partial
-
-    from ..ops.apply import transpose_coeffs
-    from ..ops.stencil_pallas import _default_interpret, apply_stencil_pallas
-
-    if interpret is None:
-        interpret = _default_interpret()
+    route = kernel_route(interpret)
     b = jnp.asarray(b)
     shift = jnp.asarray(shift, b.dtype)
     # Cast to the RHS dtype: a wide extra_diag (e.g. f64 under x64)
@@ -1441,20 +1178,10 @@ def solve_shifted_chunked(
     apply_coeffs = transpose_coeffs(coeffs, topology) if transpose else coeffs
 
     shifted_diag = shift + extra + coeffs.diag
-    if preconditioner == "tridiag":
-        if transpose:
-            from ..grid.topology import neighbor_values as _nv
-
-            m_coeffs = coeffs._replace(
-                top=_nv(coeffs.bottom, "top", topology, fill=0.0),
-                bottom=_nv(coeffs.top, "bottom", topology, fill=0.0),
-            )
-        else:
-            m_coeffs = coeffs
-    elif preconditioner == "jacobi":
-        m_coeffs = coeffs  # unused by the Jacobi M; threaded for symmetry
-    else:
+    if preconditioner not in ("tridiag", "jacobi"):
         raise ValueError(f"unknown preconditioner {preconditioner!r}")
+    # (the Jacobi M reads only the diagonal; m_coeffs is threaded anyway)
+    m_coeffs = _swap_vertical(coeffs, topology) if transpose else coeffs
 
     # Pre-bake the scalar shift and the extra diagonal INTO the stencil
     # diagonal: the matvec then needs no post-kernel `shift*x + extra*x`
@@ -1462,28 +1189,6 @@ def solve_shifted_chunked(
     # two per Krylov iteration at grid scale). transpose_coeffs keeps
     # the diagonal, so this is valid for adjoint solves too.
     a_coeffs = apply_coeffs._replace(diag=shifted_diag)
-
-    if fused is None:
-        from ..ops.krylov_pallas import _pick_j_block_krylov
-
-        nz_, ny_, nx_ = topology.shape3d
-        fused = (
-            algorithm == "bicgstab2"
-            and preconditioner == "tridiag"
-            and _pick_j_block_krylov(nz_, ny_, nx_, b.dtype.itemsize,
-                                     96 * 1024 * 1024) is not None
-        )
-    m_rows = None
-    if fused:
-        # Tridiag halo-row stacks for the fused kernel — constant across
-        # the solve, so extracted once here instead of per call.
-        from ..ops.krylov_pallas import krylov_coeff_rows
-
-        guarded_diag = jnp.where(shifted_diag != 0, shifted_diag,
-                                 jnp.ones((), shifted_diag.dtype))
-        m_rows = jax.jit(krylov_coeff_rows, static_argnames=(
-            "topology",))(m_coeffs.bottom, guarded_diag, m_coeffs.top,
-                          topology=topology)
 
     # Chunk programs are MODULE-LEVEL jits (see _sr_chunk1 etc.): the
     # jit cache persists across solves, so repeated solves (e.g. the
@@ -1510,9 +1215,8 @@ def solve_shifted_chunked(
     # orders of magnitude above ||b||, observed in the round-3 0.25-
     # degree refinement logs). Returning the best chunk-boundary iterate
     # instead of the last makes a diverged pass harmless — in the worst
-    # case x stays at the best earlier iterate, never garbage. One extra
-    # grid vector + one device copy per improving chunk (~1 ms at 0.25
-    # degree against ~600 ms of chunk compute).
+    # case x stays at the best earlier iterate, never garbage. The cost
+    # is one extra grid vector and one device copy per improving chunk.
     # Separate allocation: x0 itself sits in the donated state tuple and
     # its buffer dies inside the first run_chunk call.
     best_x = jnp.zeros_like(b)
@@ -1534,12 +1238,12 @@ def solve_shifted_chunked(
         div_streak = 0
         state = None  # free the grid vectors before rebuilding
         if algorithm == "bicgstab":
-            state = _sr_restart1(a_coeffs, best_x, b, topology, interpret,
+            state = _sr_restart1(a_coeffs, best_x, b, topology, route,
                                  jitter)
         else:
             state = _sr_restart2(a_coeffs, m_coeffs, shifted_diag,
                                  best_x, b, topology, preconditioner,
-                                 interpret, jitter)
+                                 route, jitter)
         window_rn2 = float("inf")
         pass_rn2 = best_rn2
 
@@ -1552,19 +1256,13 @@ def solve_shifted_chunked(
         if algorithm == "bicgstab":
             state, rnorm2 = _sr_chunk1(a_coeffs, m_coeffs, shifted_diag,
                                        state, nsteps, topology,
-                                       preconditioner, interpret)
+                                       preconditioner, route)
             iters += nsteps
         else:
             ncycles = max(1, nsteps // 2)
-            if fused:
-                state, rnorm2 = _sr_chunk2_fused(
-                    a_coeffs, m_coeffs, shifted_diag, m_rows, state,
-                    ncycles, topology, interpret)
-            else:
-                state, rnorm2 = _sr_chunk2(a_coeffs, m_coeffs,
-                                           shifted_diag, state, ncycles,
-                                           topology, preconditioner,
-                                           interpret)
+            state, rnorm2 = _sr_chunk2(a_coeffs, m_coeffs, shifted_diag,
+                                       state, ncycles, topology,
+                                       preconditioner, route)
             iters += 2 * ncycles
         rn2 = float(rnorm2)
         if chunk_s is not None:
@@ -1685,9 +1383,9 @@ def solve_shifted_chunked(
     if algorithm == "bicgstab2":
         # the bicgstab2 state lives in right-preconditioned y-space
         x = _sr_apply_M(m_coeffs, shifted_diag, a_coeffs, x,
-                        preconditioner, interpret)
+                        preconditioner, route)
 
-    res = _sr_final_res(a_coeffs, x, b, topology, interpret)
+    res = _sr_final_res(a_coeffs, x, b, topology, route)
     return x, res
 
 
@@ -1698,36 +1396,13 @@ _mdot = lambda u, v: jnp.sum(u * v, axis=(1, 2, 3))  # (B,); real fields
 _mbx = lambda s: s[:, None, None, None]
 
 
-def _mk_M_multi(mc_l, md_l, preconditioner: str, interpret: bool):
-    if preconditioner == "tridiag":
-        # Fused Pallas Thomas kernel, vmapped over the batch (the batch
-        # axis becomes an outer grid dimension; coefficient blocks are
-        # re-fetched per member, but the preconditioner is 5 streams vs
-        # the jnp scans' ~9 either way).
-        from ..ops.tridiag_pallas import tridiag_solve_pallas
-
-        guarded = jnp.where(md_l != 0, md_l, jnp.ones((), md_l.dtype))
-
-        def M(vs):
-            return jax.vmap(
-                lambda v: tridiag_solve_pallas(
-                    mc_l.bottom, guarded, mc_l.top, v, interpret=interpret
-                )
-            )(vs)
-
-        return M
-    return _jacobi_preconditioner(md_l)  # elementwise; broadcasts over B
-
-
 @partial(jax.jit, static_argnums=(4, 5, 6, 7), donate_argnums=(3,))
 def _mr_chunk1(c_l, mc_l, md_l, state, nsteps: int, topology: GridTopology,
-               preconditioner: str, interpret: bool):
-    from ..ops.stencil_pallas import apply_stencil_pallas_multi
-
-    M = _mk_M_multi(mc_l, md_l, preconditioner, interpret)
+               preconditioner: str, route: str):
+    M = _mk_M(mc_l, md_l, preconditioner, route)
 
     def a_op(xs):
-        return apply_stencil_pallas_multi(c_l, xs, topology, interpret)
+        return apply_stencil_pallas_multi(c_l, xs, topology, route)
 
     dot, bx = _mdot, _mbx
 
@@ -1758,13 +1433,11 @@ def _mr_chunk1(c_l, mc_l, md_l, state, nsteps: int, topology: GridTopology,
 
 @partial(jax.jit, static_argnums=(4, 5, 6, 7), donate_argnums=(3,))
 def _mr_chunk2(c_l, mc_l, md_l, state, ncycles: int, topology: GridTopology,
-               preconditioner: str, interpret: bool):
-    from ..ops.stencil_pallas import apply_stencil_pallas_multi
-
-    M = _mk_M_multi(mc_l, md_l, preconditioner, interpret)
+               preconditioner: str, route: str):
+    M = _mk_M(mc_l, md_l, preconditioner, route)
 
     def K(vs):
-        return apply_stencil_pallas_multi(c_l, M(vs), topology, interpret)
+        return apply_stencil_pallas_multi(c_l, M(vs), topology, route)
 
     dot, bx = _mdot, _mbx
     one = jnp.ones((), state[0].dtype)
@@ -1815,8 +1488,8 @@ def _mr_chunk2(c_l, mc_l, md_l, state, ncycles: int, topology: GridTopology,
 
 
 @partial(jax.jit, static_argnums=(4, 5))
-def _mr_apply_M(mc_l, md_l, c_l, y_l, preconditioner: str, interpret: bool):
-    return _mk_M_multi(mc_l, md_l, preconditioner, interpret)(y_l)
+def _mr_apply_M(mc_l, md_l, c_l, y_l, preconditioner: str, route: str):
+    return _mk_M(mc_l, md_l, preconditioner, route)(y_l)
 
 
 @partial(jax.jit)
@@ -1837,13 +1510,11 @@ def _mr_blend(old, new, mask_d):
 
 @partial(jax.jit, static_argnums=(5, 6, 7), donate_argnums=(1,))
 def _mr_restart_members(c_l, state_old, xs_best, bs_l, mask_d,
-                        topology: GridTopology, interpret: bool,
+                        topology: GridTopology, route: str,
                         jitter: int = 0):
     """Fresh Krylov space from the best iterate for the members in
     `mask_d` only; other members' state passes through untouched."""
-    from ..ops.stencil_pallas import apply_stencil_pallas_multi
-
-    r = bs_l - apply_stencil_pallas_multi(c_l, xs_best, topology, interpret)
+    r = bs_l - apply_stencil_pallas_multi(c_l, xs_best, topology, route)
     new = (xs_best + 0.0, r, r + 0.0, _jitter_rhat(r, jitter),
            _mdot(r, r))
     return _mr_blend(state_old, new, mask_d)
@@ -1852,12 +1523,10 @@ def _mr_restart_members(c_l, state_old, xs_best, bs_l, mask_d,
 @partial(jax.jit, static_argnums=(7, 8, 9, 10), donate_argnums=(3,))
 def _mr_restart_members2(c_l, mc_l, md_l, state_old, xs_best, bs_l, mask_d,
                          topology: GridTopology, preconditioner: str,
-                         interpret: bool, jitter: int = 0):
-    from ..ops.stencil_pallas import apply_stencil_pallas_multi
-
-    M = _mk_M_multi(mc_l, md_l, preconditioner, interpret)
+                         route: str, jitter: int = 0):
+    M = _mk_M(mc_l, md_l, preconditioner, route)
     r = bs_l - apply_stencil_pallas_multi(c_l, M(xs_best), topology,
-                                          interpret)
+                                          route)
     B = bs_l.shape[0]
     ones_b = jnp.ones((B,), bs_l.dtype)
     new = (xs_best + 0.0, r, jnp.zeros_like(r), _jitter_rhat(r, jitter),
@@ -1866,10 +1535,8 @@ def _mr_restart_members2(c_l, mc_l, md_l, state_old, xs_best, bs_l, mask_d,
 
 
 @partial(jax.jit, static_argnums=(3, 4))
-def _mr_final_res(c_l, xs_l, bs_l, topology: GridTopology, interpret: bool):
-    from ..ops.stencil_pallas import apply_stencil_pallas_multi
-
-    r = apply_stencil_pallas_multi(c_l, xs_l, topology, interpret) - bs_l
+def _mr_final_res(c_l, xs_l, bs_l, topology: GridTopology, route: str):
+    r = apply_stencil_pallas_multi(c_l, xs_l, topology, route) - bs_l
     bn = jnp.sqrt(_mdot(bs_l, bs_l))
     return jnp.sqrt(_mdot(r, r)) / jnp.where(bn == 0, 1.0, bn)
 
@@ -1885,7 +1552,7 @@ def solve_shifted_chunked_multi(
     chunk: int = 50,
     transpose: bool = False,
     preconditioner: str = "tridiag",
-    interpret: bool | None = None,
+    interpret: bool = False,
     verbose: bool = False,
     early_stop: bool = True,
     max_restarts: int = 2,
@@ -1895,17 +1562,13 @@ def solve_shifted_chunked_multi(
 ):
     """`solve_shifted_multi` with the lockstep batched Krylov loop split
     into host-controlled fori_loop chunks — the batched analogue of
-    `solve_shifted_chunked`, for grids where the Pallas matvec resolves
-    to the j-blocked kernels (see `blocked_unstable_in_while`: blocked
-    kernels inside `lax.while_loop` crash the TPU worker at production
-    iteration counts, while fori_loop chunks are stable at roofline).
+    `solve_shifted_chunked`, for large grids.
 
     All B solves share one operator, so the matvec runs through the
-    batched Pallas kernel family (coefficient streams fetched once per k
-    level and shared across the batch: per-solve traffic 2 + 7/B streams
-    instead of 9) — this keeps `water_mass_fractions` on the fused
-    batched kernels at the 0.25-degree scale-out size instead of the
-    ~1.5x-slower jnp matvec. Same contract as `solve_shifted_multi`:
+    batched stencil kernel (coefficients read once per tile and shared
+    across the batch: per-solve traffic 2 + 7/B streams instead of 9)
+    and the Thomas preconditioner through its kernel, both on
+    `kernel_route(interpret)`. Same contract as `solve_shifted_multi`:
     `bs` is (B, nz, ny, nx); returns (xs, residuals) with residuals
     shape (B,), recomputed from scratch. The chunk boundary checks EVERY
     batch member's recurrence residual and stops only when all meet
@@ -1922,16 +1585,7 @@ def solve_shifted_chunked_multi(
     minimal-residual polish per cycle, right-preconditioned in y-space.
     `maxiter`/`chunk` still count matvec-pairs.
     """
-    from functools import partial as _partial
-
-    from ..ops.apply import transpose_coeffs
-    from ..ops.stencil_pallas import (
-        _default_interpret,
-        apply_stencil_pallas_multi,
-    )
-
-    if interpret is None:
-        interpret = _default_interpret()
+    route = kernel_route(interpret)
     bs = jnp.asarray(bs)
     if bs.ndim != 4:
         raise ValueError(f"bs must be (B, nz, ny, nx); got {bs.shape}")
@@ -1943,20 +1597,10 @@ def solve_shifted_chunked_multi(
     apply_coeffs = transpose_coeffs(coeffs, topology) if transpose else coeffs
 
     shifted_diag = shift + extra + coeffs.diag
-    if preconditioner == "tridiag":
-        if transpose:
-            from ..grid.topology import neighbor_values as _nv
-
-            m_coeffs = coeffs._replace(
-                top=_nv(coeffs.bottom, "top", topology, fill=0.0),
-                bottom=_nv(coeffs.top, "bottom", topology, fill=0.0),
-            )
-        else:
-            m_coeffs = coeffs
-    elif preconditioner == "jacobi":
-        m_coeffs = coeffs  # unused by the Jacobi M; threaded for symmetry
-    else:
+    if preconditioner not in ("tridiag", "jacobi"):
         raise ValueError(f"unknown preconditioner {preconditioner!r}")
+    # (the Jacobi M reads only the diagonal; m_coeffs is threaded anyway)
+    m_coeffs = _swap_vertical(coeffs, topology) if transpose else coeffs
 
     axes = (1, 2, 3)
     dot = lambda u, v: jnp.sum(u * v, axis=axes)  # (B,); fields are real
@@ -2014,13 +1658,13 @@ def solve_shifted_chunked_multi(
         mask_d = jnp.asarray(mask)
         if algorithm == "bicgstab":
             state = _mr_restart_members(a_coeffs, state, best_xs, bs,
-                                        mask_d, topology, interpret,
+                                        mask_d, topology, route,
                                         jitter)
         else:
             state = _mr_restart_members2(a_coeffs, m_coeffs, shifted_diag,
                                          state, best_xs, bs, mask_d,
                                          topology, preconditioner,
-                                         interpret, jitter)
+                                         route, jitter)
         window_rn2 = np.where(mask, np.inf, window_rn2)
         pass_rn2 = np.where(mask, np.asarray(best_rn2), pass_rn2)
 
@@ -2029,13 +1673,13 @@ def solve_shifted_chunked_multi(
         if algorithm == "bicgstab":
             state, rnorm2 = _mr_chunk1(a_coeffs, m_coeffs, shifted_diag,
                                        state, nsteps, topology,
-                                       preconditioner, interpret)
+                                       preconditioner, route)
             iters += nsteps
         else:
             ncycles = max(1, nsteps // 2)
             state, rnorm2 = _mr_chunk2(a_coeffs, m_coeffs, shifted_diag,
                                        state, ncycles, topology,
-                                       preconditioner, interpret)
+                                       preconditioner, route)
             iters += 2 * ncycles
         best_xs, best_rn2 = _mr_keep_best(best_xs, best_rn2, state[0],
                                           rnorm2)
@@ -2130,7 +1774,7 @@ def solve_shifted_chunked_multi(
     if algorithm == "bicgstab2":
         # the bicgstab2 state lives in right-preconditioned y-space
         xs = _mr_apply_M(m_coeffs, shifted_diag, a_coeffs, xs,
-                         preconditioner, interpret)
+                         preconditioner, route)
 
-    res = _mr_final_res(a_coeffs, xs, bs, topology, interpret)
+    res = _mr_final_res(a_coeffs, xs, bs, topology, route)
     return xs, res

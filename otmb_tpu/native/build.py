@@ -1,7 +1,8 @@
 """On-demand compilation and loading of the native helpers via ctypes.
 
-Build artifacts are cached next to the sources keyed by a content hash, so
-a source change triggers a rebuild and stale .so files are never loaded.
+Build artifacts are cached in `_build/` beside the sources (listed in
+.gitignore), keyed by a content hash, so a source change triggers a
+rebuild and stale .so files are never loaded.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import tempfile
 logger = logging.getLogger(__name__)
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
+_BUILD = os.path.join(_HERE, "_build")
 _CACHE: dict[str, ctypes.CDLL | None] = {}
 
 
@@ -31,10 +33,11 @@ def load_library(name: str) -> ctypes.CDLL | None:
     src = os.path.join(_HERE, f"{name}.cpp")
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    out = os.path.join(_HERE, f"_{name}_{digest}.so")
+    out = os.path.join(_BUILD, f"_{name}_{digest}.so")
 
     if not os.path.exists(out):
-        tmp = tempfile.mktemp(suffix=".so", dir=_HERE)
+        os.makedirs(_BUILD, exist_ok=True)
+        tmp = tempfile.mktemp(suffix=".so", dir=_BUILD)
         cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-o", tmp, src]
         try:
             subprocess.run(cmd, check=True, capture_output=True, timeout=120)

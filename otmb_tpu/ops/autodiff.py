@@ -1,12 +1,12 @@
-"""Differentiable operator layer: custom VJPs for the Pallas hot paths
-and the implicit-adjoint rule for steady-state solves.
+"""Differentiable operator layer: custom VJPs for the stencil apply and
+Euler step, and the implicit-adjoint rule for steady-state solves.
 
 The jnp paths (`ops.apply.apply_stencil`, `explicit_euler_propagate`) are
 natively differentiable, and so is the fused assembly
 (`assemble_transport` is jnp end to end, so kappa_h / kappa_vml /
-kappa_vdeep / rho gradients come free). What JAX cannot differentiate on
-its own are (a) the opaque Pallas kernels and (b) the Krylov
-`while_loop`. Both have exact mathematical rules, supplied here:
+kappa_vdeep / rho gradients come free). The exact rules below give the
+apply and step cheaper adjoints than tracing through the gathers, and
+JAX cannot differentiate the Krylov `while_loop` on its own:
 
   * apply:  y = T(c) x
         x_bar = T(c)' y_bar;   c_bar_d = y_bar * gather_d(x)
@@ -18,8 +18,8 @@ its own are (a) the opaque Pallas kernels and (b) the Krylov
         c_bar_d = -z * gather_d(x)          (implicit-function adjoint)
 
 The adjoint solve reuses the SAME production solver (including the
-sharded halo-Pallas Krylov loop when `mesh` is set), so gradients run at
-forward-solve speed. This composes with `jax.grad` through the whole
+sharded halo-exchange Krylov loop when `mesh` is set), so gradients run
+at forward-solve speed. This composes with `jax.grad` through the whole
 pipeline: mixing coefficients (kappa_h, kappa_GM, ...) can be calibrated
 against observations by gradient descent — the reference ecosystem does
 this offline with a hand-built transpose matrix (the sequestration-time
@@ -34,7 +34,7 @@ import jax
 import jax.numpy as jnp
 
 from ..grid.topology import DIRECTIONS, GridTopology, neighbor_values
-from .apply import apply_stencil, apply_stencil_transpose, transpose_coeffs
+from .apply import apply_stencil, apply_stencil_transpose
 from .coeffs import StencilCoeffs
 
 
@@ -48,40 +48,21 @@ def _coeff_cotangents(ybar, x, topology: GridTopology, scale) -> StencilCoeffs:
     return StencilCoeffs(diag=scale * ybar * x, **legs)
 
 
-def _apply(coeffs, x, topology, impl):
-    if impl == "pallas":
-        from .stencil_pallas import apply_stencil_pallas
-
-        return apply_stencil_pallas(coeffs, x, topology)
-    return apply_stencil(coeffs, x, topology)
-
-
-def _apply_transpose(coeffs, ybar, topology, impl):
-    if impl == "pallas":
-        from .stencil_pallas import apply_stencil_pallas
-
-        return apply_stencil_pallas(
-            transpose_coeffs(coeffs, topology), ybar, topology
-        )
-    return apply_stencil_transpose(coeffs, ybar, topology)
-
-
-@partial(jax.custom_vjp, nondiff_argnums=(2, 3))
-def apply_stencil_ad(coeffs: StencilCoeffs, chi, topology: GridTopology,
-                     impl: str = "pallas"):
+@partial(jax.custom_vjp, nondiff_argnums=(2,))
+def apply_stencil_ad(coeffs: StencilCoeffs, chi, topology: GridTopology):
     """y = T @ chi, differentiable in both the coefficients and the
-    tracer; `impl="pallas"` runs forward AND adjoint through the fused
-    kernel."""
-    return _apply(coeffs, chi, topology, impl)
+    tracer through the exact rule above (the adjoint is one transpose
+    apply)."""
+    return apply_stencil(coeffs, chi, topology)
 
 
-def _apply_ad_fwd(coeffs, chi, topology, impl):
-    return _apply(coeffs, chi, topology, impl), (coeffs, chi)
+def _apply_ad_fwd(coeffs, chi, topology):
+    return apply_stencil(coeffs, chi, topology), (coeffs, chi)
 
 
-def _apply_ad_bwd(topology, impl, res, ybar):
+def _apply_ad_bwd(topology, res, ybar):
     coeffs, chi = res
-    chi_bar = _apply_transpose(coeffs, ybar, topology, impl)
+    chi_bar = apply_stencil_transpose(coeffs, ybar, topology)
     one = jnp.asarray(1.0, ybar.dtype)
     return (_coeff_cotangents(ybar, chi, topology, one), chi_bar)
 
@@ -89,30 +70,22 @@ def _apply_ad_bwd(topology, impl, res, ybar):
 apply_stencil_ad.defvjp(_apply_ad_fwd, _apply_ad_bwd)
 
 
-@partial(jax.custom_vjp, nondiff_argnums=(2, 3, 4))
+@partial(jax.custom_vjp, nondiff_argnums=(2, 3))
 def euler_step_ad(coeffs: StencilCoeffs, chi, dt: float,
-                  topology: GridTopology, impl: str = "pallas"):
-    """chi - dt * T @ chi (dt static, matching `euler_step_pallas`),
-    differentiable in coefficients and tracer — usable inside
-    `lax.scan`/`fori_loop` propagation loops under `jax.grad`."""
-    return _euler_step(coeffs, chi, dt, topology, impl)
-
-
-def _euler_step(coeffs, chi, dt, topology, impl):
-    if impl == "pallas":
-        from .stencil_pallas import euler_step_pallas
-
-        return euler_step_pallas(coeffs, chi, float(dt), topology)
+                  topology: GridTopology):
+    """chi - dt * T @ chi (dt static), differentiable in coefficients and
+    tracer — usable inside `lax.scan`/`fori_loop` propagation loops under
+    `jax.grad`."""
     return chi - dt * apply_stencil(coeffs, chi, topology)
 
 
-def _euler_ad_fwd(coeffs, chi, dt, topology, impl):
-    return _euler_step(coeffs, chi, dt, topology, impl), (coeffs, chi)
+def _euler_ad_fwd(coeffs, chi, dt, topology):
+    return euler_step_ad(coeffs, chi, dt, topology), (coeffs, chi)
 
 
-def _euler_ad_bwd(dt, topology, impl, res, ybar):
+def _euler_ad_bwd(dt, topology, res, ybar):
     coeffs, chi = res
-    chi_bar = ybar - dt * _apply_transpose(coeffs, ybar, topology, impl)
+    chi_bar = ybar - dt * apply_stencil_transpose(coeffs, ybar, topology)
     scale = jnp.asarray(-dt, ybar.dtype)
     return (_coeff_cotangents(ybar, chi, topology, scale), chi_bar)
 
@@ -126,8 +99,8 @@ def differentiable_solve(topology: GridTopology, **opts):
     diag(extra_diag) + T) x = b`, using the implicit-function adjoint:
     the backward pass is ONE transpose solve with the same production
     solver (`opts` are forwarded to `models.solvers.solve_shifted`, so
-    `apply_impl="pallas"` / `mesh=...` give Pallas-kernel or sharded
-    halo-Pallas adjoints).
+    `apply_impl="pallas"` / `mesh=...` give kernel-route or sharded
+    halo-exchange adjoints).
 
     Unlike `solve_shifted` this returns only `x` (a residual diagnostic
     has no useful cotangent); the forward residual is still checked

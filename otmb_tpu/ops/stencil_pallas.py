@@ -1,1237 +1,165 @@
-"""Fused Pallas TPU kernel for the 7-point transport stencil.
+"""Batched 7-point stencil: one Pallas kernel for the GPU (Triton route)
+that applies the same operator to B tracers.
 
-The hot path of the engine: y = T @ chi (optionally fused with the Euler
-update chi - dt*T@chi) over (nz, ny, nx) fields. One grid step per k
-level; each program loads the chi slabs for k-1, k, k+1 and the seven
-coefficient slabs into VMEM and does all neighbor algebra on-chip:
+Real transport workloads push MANY tracers through the SAME operator
+(water-mass fractions, dye releases, tracer ensembles). XLA's fusion of
+`ops.apply.apply_stencil` over a (B, nz, ny, nx) batch reads each
+coefficient once per tracer: the coefficients' reuse distance is one
+tracer volume, and the seven coefficient fields (151 MB at 1 degree,
+3.3 GB at 0.25 degree, f32) do not fit in the card's L2. Here each
+program loads its tile of the seven coefficient fields once and loops
+over the batch, so per-tracer traffic is 2 + 7/B streams instead of 9.
 
-  * east/west — lane rolls (periodic longitude);
-  * north/south — sublane shifts, with the tripolar fold realized as a
-    lane-reversal of the top row (reference gridtopology.jl:94-95);
-  * top/bottom — the adjacent-k chi slabs (clamped at the boundaries,
-    where the corresponding coefficients are exactly zero).
+Each program owns one k level and a run of `_TILE` consecutive cells of
+the flattened (ny, nx) plane. Neighbours come in by index arithmetic on
+the flat plane: the periodic i wrap, the j = 0 and k ends (zero fill),
+and the tripolar fold of the top row, (ny-1, i) -> (ny-1, nx-1-i). The
+sum is taken in `apply_stencil`'s order (diag, east, west, north, south,
+top, bottom), so interpret mode agrees with it bitwise.
 
-The kernel is memory-bound by design: 8 reads + 1 write per cell, no
-recomputation, everything else fused. Roofline = HBM bandwidth.
+No reference counterpart (the reference applies its sparse matrix to one
+vector at a time).
 """
 
 from __future__ import annotations
 
-import contextlib
 import functools
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-from .pallas_util import index_map_i32
+from jax.experimental.pallas import triton as plgpu
 
 from ..grid.topology import GridTopology
+from .apply import apply_stencil
 from .coeffs import StencilCoeffs
+from .pallas_util import check_route, int32_batches, kernel_route
+
+#: Cells of one k level per program, and warps per program.
+_TILE = 512
+_WARPS = 4
 
 
-# Kernel index math must stay int32: under jax_enable_x64 a Python-int
-# literal promotes through int64 and Mosaic's int64 conversion helper
-# recurses infinitely during lowering.
-_I32_2 = np.int32(2)
-_I32_3 = np.int32(3)
+def _stencil_kernel(d_ref, e_ref, w_ref, n_ref, s_ref, t_ref, b_ref, chi_ref,
+                    dt_ref, out_ref, *, nb: int, nz: int, ny: int, nx: int,
+                    tripolar: bool, euler: bool):
+    plane = ny * nx
+    k = pl.program_id(1)
+    p = pl.program_id(0) * _TILE + jnp.arange(_TILE, dtype=jnp.int32)
+    # Lanes past the plane stay masked, never clamped: a masked store
+    # with duplicate indices is undefined in interpret mode.
+    live = p < plane
+    j = p // nx
+    i = p - j * nx
+    east = jnp.where(i == nx - 1, p - (nx - 1), p + 1)
+    west = jnp.where(i == 0, p + (nx - 1), p - 1)
+    top_row = j == ny - 1
+    north = jnp.where(top_row, (ny - 1) * nx + (nx - 1 - i), p + nx)
+    north_ok = live if tripolar else live & ~top_row
+    south_ok = live & (j > 0)
+    south = jnp.where(south_ok, p - nx, 0)
+    up_ok = live & (k > 0)
+    down_ok = live & (k < nz - 1)
+
+    dtype = out_ref.dtype
+    coef = lambda ref: plgpu.load(
+        ref.at[k * plane + p], mask=live, other=0.0).astype(dtype)
+    cd, ce, cw = coef(d_ref), coef(e_ref), coef(w_ref)
+    cn, cs, ct, cb = coef(n_ref), coef(s_ref), coef(t_ref), coef(b_ref)
+    # dt is a one-element input (it may be traced); every lane loads it.
+    dt = plgpu.load(dt_ref.at[jnp.zeros((_TILE,), jnp.int32)])
+
+    def tracer(m, carry):
+        base = (m * nz + k) * plane
+        val = lambda idx, ok: plgpu.load(chi_ref.at[base + idx], mask=ok,
+                                         other=0.0)
+        x = val(p, live)
+        acc = cd * x
+        acc = acc + ce * val(east, live)
+        acc = acc + cw * val(west, live)
+        acc = acc + cn * val(north, north_ok)
+        acc = acc + cs * val(south, south_ok)
+        acc = acc + ct * val(jnp.where(up_ok, p - plane, p), up_ok)
+        acc = acc + cb * val(jnp.where(down_ok, p + plane, p), down_ok)
+        if euler:
+            acc = x - dt * acc
+        plgpu.store(out_ref.at[base + p], acc, mask=live)
+        return carry
+
+    jax.lax.fori_loop(jnp.int32(0), jnp.int32(nb), tracer, jnp.int32(0))
 
 
-def _stencil_kernel(
-    diag_ref, e_ref, w_ref, n_ref, s_ref, t_ref, b_ref,
-    chi_ref, chi_up_ref, chi_dn_ref, seam_ref,
-    out_ref,
-    *,
-    ny: int,
-    dt: float | None,
-):
-    chi = chi_ref[0]
-
-    nx = chi.shape[1]
-    # pltpu.roll requires non-negative shifts: roll(x, nx-1) == roll(x, -1)
-    east = pltpu.roll(chi, np.int32(nx - 1), 1)  # value at i+1 (periodic)
-    west = pltpu.roll(chi, np.int32(1), 1)  # value at i-1
-
-    # j+1 neighbor: shift rows down; the top row wraps across the seam.
-    # Mosaic has no in-kernel lane reversal (`rev`), so the i-reversed top
-    # row (tripolar) — or a dead row (bipolar, zero coef) — is precomputed
-    # outside and streamed in as `seam_ref` (nz x nx, negligible traffic).
-    north = jnp.concatenate([chi[1:, :], seam_ref[0]], axis=0)
-    south = jnp.concatenate([chi[0:1, :], chi[: ny - 1, :]], axis=0)
-
-    up = lambda r: r[0].astype(chi.dtype)
-    acc = up(diag_ref) * chi
-    acc += up(e_ref) * east + up(w_ref) * west
-    acc += up(n_ref) * north + up(s_ref) * south
-    acc += up(t_ref) * chi_up_ref[0] + up(b_ref) * chi_dn_ref[0]
-
-    if dt is not None:
-        acc = chi - dt * acc
-    out_ref[0] = acc
+def _stencil_pallas(coeffs: StencilCoeffs, chis, dt, topology: GridTopology,
+                    euler: bool, interpret: bool):
+    """The kernel over the batch, in as many calls as int32 indexing
+    needs (`pallas_util.int32_batches`)."""
+    nb, nz, ny, nx = chis.shape
+    slices = int32_batches(nb, nz * ny * nx, _TILE)
+    if len(slices) == 1:
+        return _stencil_call(coeffs, chis, dt, topology, euler, interpret)
+    return jnp.concatenate([
+        _stencil_call(coeffs, chis[a:b], dt, topology, euler, interpret)
+        for a, b in slices
+    ])
 
 
-@functools.partial(
-    jax.jit, static_argnames=("topology", "dt_static", "interpret")
-)
-def _apply_pallas(coeffs: StencilCoeffs, chi, topology: GridTopology,
-                  dt_static, interpret: bool):
-    nz, ny, nx = topology.shape3d
-    chi = jnp.asarray(chi)
-    dtype = chi.dtype
-
-    slab = lambda k: (k, 0, 0)
-    slab_up = lambda k: (jnp.maximum(k - 1, 0), 0, 0)
-    slab_dn = lambda k: (jnp.minimum(k + 1, nz - 1), 0, 0)
-
-    def spec(index_map, block=(1, ny, nx)):
-        return pl.BlockSpec(block, index_map_i32(index_map),
-                            memory_space=pltpu.VMEM)
-
-    # Seam row for the j+1 neighbor of the top row: i-reversed top row for
-    # the tripolar fold (Mosaic has no in-kernel lane reversal, so it is
-    # precomputed here); dead (zero-multiplied) row otherwise.
-    if topology.is_tripolar:
-        seam = chi[:, ny - 1, ::-1]
-    else:
-        seam = chi[:, ny - 1, :]
-    seam = seam.reshape(nz, 1, nx)
-
-    kernel = functools.partial(_stencil_kernel, ny=ny, dt=dt_static)
-
-    return pl.pallas_call(
-        kernel,
-        grid=(nz,),
-        in_specs=[spec(slab)] * 7
-        + [spec(slab), spec(slab_up), spec(slab_dn), spec(slab, (1, 1, nx))],
-        out_specs=spec(slab),
-        out_shape=jax.ShapeDtypeStruct((nz, ny, nx), dtype),
-        interpret=interpret,
-        cost_estimate=pl.CostEstimate(
-            flops=15 * nz * ny * nx,
-            bytes_accessed=9 * nz * ny * nx * dtype.itemsize,
-            transcendentals=0,
-        ),
-    )(
-        coeffs.diag, coeffs.east, coeffs.west, coeffs.north,
-        coeffs.south, coeffs.top, coeffs.bottom, chi, chi, chi,
-        seam.astype(dtype),
-    )
-
-
-def _stencil_kernel_carry(
-    diag_ref, e_ref, w_ref, n_ref, s_ref, t_ref, b_ref,
-    chi_in_ref, seam_ref,
-    out_ref,
-    chi_scr,
-    *,
-    ny: int,
-    dt: float | None,
-):
-    """k-carry variant: grid is (nz+1,) with logical k = step-1; the chi
-    slabs for k-1 and k live in a 3-slot VMEM scratch rotation, so chi is
-    streamed from HBM exactly once (the incoming block is chi[k+1]).
-    HBM traffic drops from 11 to ~9 streams per cell."""
-    step = pl.program_id(0)
-    k = step - 1
-
-    def slot_select(slot_idx):
-        return jnp.where(
-            slot_idx == 0,
-            chi_scr[0],
-            jnp.where(slot_idx == 1, chi_scr[1], chi_scr[2]),
-        )
-
-    @pl.when(step > 0)
-    def _():
-        chi = slot_select((k + _I32_3) % _I32_3)
-        chi_up = slot_select((k + _I32_2) % _I32_3)  # (k-1) mod 3
-        chi_up = jnp.where(k > 0, chi_up, 0.0)  # slot is garbage at k == 0
-        chi_dn = chi_in_ref[0]  # chi[k+1] (clamped at the floor, coef 0)
-
-        nx = chi.shape[1]
-        east = pltpu.roll(chi, np.int32(nx - 1), 1)
-        west = pltpu.roll(chi, np.int32(1), 1)
-        north = jnp.concatenate([chi[1:, :], seam_ref[0]], axis=0)
-        south = jnp.concatenate([chi[0:1, :], chi[: ny - 1, :]], axis=0)
-
-        up = lambda r: r[0].astype(chi.dtype)
-        acc = up(diag_ref) * chi
-        acc += up(e_ref) * east + up(w_ref) * west
-        acc += up(n_ref) * north + up(s_ref) * south
-        acc += up(t_ref) * chi_up + up(b_ref) * chi_dn
-
-        if dt is not None:
-            acc = chi - dt * acc
-        out_ref[0] = acc
-
-    # Rotate the incoming chi[k+1] into slot (k+1) mod 3 — never a slot
-    # read this step, so there is no read/write ordering hazard.
-    write_slot = step % _I32_3
-    for slot in range(3):
-        @pl.when(write_slot == slot)
-        def _(slot=slot):
-            chi_scr[slot] = chi_in_ref[0]
-
-
-@functools.partial(jax.jit, static_argnames=("topology", "dt_static", "interpret"))
-def _apply_pallas_carry(coeffs: StencilCoeffs, chi, topology: GridTopology,
-                        dt_static, interpret: bool):
-    nz, ny, nx = topology.shape3d
-    chi = jnp.asarray(chi)
-    dtype = chi.dtype
-
-    slab_k = lambda s: (jnp.maximum(s - 1, 0), 0, 0)
-    slab_in = lambda s: (jnp.minimum(s, nz - 1), 0, 0)
-
-    def spec(index_map, block=(1, ny, nx)):
-        return pl.BlockSpec(block, index_map_i32(index_map),
-                            memory_space=pltpu.VMEM)
-
-    if topology.is_tripolar:
-        seam = chi[:, ny - 1, ::-1]
-    else:
-        seam = chi[:, ny - 1, :]
-    seam = seam.reshape(nz, 1, nx)
-
-    kernel = functools.partial(_stencil_kernel_carry, ny=ny, dt=dt_static)
-
-    return pl.pallas_call(
-        kernel,
-        grid=(nz + 1,),
-        in_specs=[spec(slab_k)] * 7 + [spec(slab_in), spec(slab_k, (1, 1, nx))],
-        out_specs=spec(slab_k),
-        out_shape=jax.ShapeDtypeStruct((nz, ny, nx), dtype),
-        scratch_shapes=[pltpu.VMEM((3, ny, nx), dtype)],
-        interpret=interpret,
-        # out[k] is written at grid step k+1, strictly after chi[k] was
-        # consumed (rotated into scratch at step k; the seam row is
-        # pre-gathered) — so chi's buffer can be reused for the output.
-        # In a propagation loop this lets XLA alias the loop carry through
-        # the kernel instead of round-tripping a full-array copy per step.
-        # Fused-Euler only: in the plain apply (dt=None) callers keep
-        # using chi (e.g. the Krylov a_op adds shift*x), so the alias
-        # would force XLA protection copies with no gain; keep the apply
-        # path alias-free. (An unrelated instability: the j-BLOCKED
-        # kernel inside a lax.while_loop crashes/hangs the TPU worker at
-        # 0.25-degree scale with or without aliasing — Krylov solves at
-        # that scale must use the jnp matvec; see solve_shifted.)
-        input_output_aliases={7: 0} if dt_static is not None else {},
-        cost_estimate=pl.CostEstimate(
-            flops=15 * nz * ny * nx,
-            bytes_accessed=9 * nz * ny * nx * dtype.itemsize,
-            transcendentals=0,
-        ),
-    )(
-        coeffs.diag, coeffs.east, coeffs.west, coeffs.north,
-        coeffs.south, coeffs.top, coeffs.bottom, chi, seam.astype(dtype),
-    )
-
-
-def _stencil_kernel_blocked(
-    diag_ref, e_ref, w_ref, n_ref, s_ref, t_ref, b_ref,
-    chi_in_ref, north_row_ref, south_row_ref, seam_ref,
-    out_ref,
-    *rest,
-    by: int,
-    nb: int,
-    tripolar: bool,
-    dt: float | None,
-    emit_rows: bool = False,
-):
-    """j-blocked carry kernel for grids whose full (ny, nx) slab set does
-    not fit VMEM (v5e VMEM is 128 MB; the 0.25-degree slab set is ~167 MB).
-
-    Grid is (nb, nz+1): for each j-block the k levels stream sequentially
-    with the 3-slot chi scratch rotation; the two j-halo rows of chi[k]
-    and the (tripolar) seam row arrive as tiny (1, nx) side streams.
-
-    `emit_rows=True` (the propagation-loop variant) additionally writes
-    each output block's first and last row into two tiny side outputs, so
-    the NEXT step's halo-row streams can be assembled from them without
-    re-reading the full field — which keeps the carried tracer
-    SINGLE-USE and lets the chi->out buffer alias (input_output_aliases)
-    survive buffer assignment without a defensive full-array copy
-    (measured 1.5 ms/step at 0.25 degree)."""
-    if emit_rows:
-        first_ref, last_ref, chi_scr = rest
-    else:
-        (chi_scr,) = rest
-    jb = pl.program_id(0)
-    step = pl.program_id(1)
-    k = step - 1
-
-    def slot_select(slot_idx):
-        return jnp.where(
-            slot_idx == 0,
-            chi_scr[0],
-            jnp.where(slot_idx == 1, chi_scr[1], chi_scr[2]),
-        )
-
-    @pl.when(step > 0)
-    def _():
-        chi = slot_select((k + _I32_3) % _I32_3)
-        chi_up = slot_select((k + _I32_2) % _I32_3)
-        chi_up = jnp.where(k > 0, chi_up, 0.0)
-        chi_dn = chi_in_ref[0]
-
-        nx = chi.shape[1]
-        east = pltpu.roll(chi, np.int32(nx - 1), 1)
-        west = pltpu.roll(chi, np.int32(1), 1)
-
-        if tripolar:
-            last_row = jnp.where(jb == nb - 1, seam_ref[0], north_row_ref[0])
-        else:
-            last_row = north_row_ref[0]  # dead at the global top (zero coef)
-        north = jnp.concatenate([chi[1:, :], last_row], axis=0)
-        south = jnp.concatenate([south_row_ref[0], chi[: by - 1, :]], axis=0)
-
-        up = lambda r: r[0].astype(chi.dtype)
-        acc = up(diag_ref) * chi
-        acc += up(e_ref) * east + up(w_ref) * west
-        acc += up(n_ref) * north + up(s_ref) * south
-        acc += up(t_ref) * chi_up + up(b_ref) * chi_dn
-
-        if dt is not None:
-            acc = chi - dt * acc
-        out_ref[0] = acc
-        if emit_rows:
-            first_ref[0] = acc[0:1, :]
-            last_ref[0] = acc[by - 1 : by, :]
-
-    write_slot = step % _I32_3
-    for slot in range(3):
-        @pl.when(write_slot == slot)
-        def _(slot=slot):
-            chi_scr[slot] = chi_in_ref[0]
-
-
-def _pick_j_block(ny: int, nx: int, itemsize: int, budget_bytes: int) -> int:
-    """j-block size for the blocked stencil kernel.
-
-    Constraints and preferences, in order:
-      * must divide ny (Pallas needs uniform blocks) and — unless equal to
-        ny — be a multiple of 8 (the f32 sublane tile; Mosaic rejects
-        other sublane block sizes);
-      * the 12-buffer double-buffered working set must fit the budget;
-      * PREFER mid-size blocks (<= 256 rows): measured on the 0.25-degree
-        grid (1440x1080x75, v5e), by=216 and by=120 both sustain 100% of
-        the many-stream DMA peak while the VMEM-maximal by=360 runs at
-        only ~62% — oversized blocks starve the double-buffering pipeline.
-    """
-    divisors = sorted((d for d in range(1, ny + 1) if ny % d == 0),
-                      reverse=True)
-    legal = [
-        d for d in divisors
-        if (d % 8 == 0 or d == ny)
-        and 12 * d * nx * itemsize * 2 <= budget_bytes
-    ]
-    preferred = [d for d in legal if d <= 256]
-    if preferred:
-        return preferred[0]
-    if legal:
-        return legal[-1]  # smallest legal block when even 256 won't fit
-    # No multiple-of-8 divisor fits: fall back to the largest divisor that
-    # fits the budget (may only lower for ny itself; callers with odd ny
-    # use by_static or the full-slab variant).
-    for by in divisors:
-        if 12 * by * nx * itemsize * 2 <= budget_bytes:
-            return by
-    return 1
-
-
-@functools.partial(jax.jit, static_argnames=("topology", "dt_static", "interpret",
-                                              "by_static"))
-def _apply_pallas_blocked(coeffs: StencilCoeffs, chi, topology: GridTopology,
-                          dt_static, interpret: bool, by_static=None):
-    nz, ny, nx = topology.shape3d
-    chi = jnp.asarray(chi)
-    dtype = chi.dtype
-
-    by = by_static if by_static else _pick_j_block(
-        ny, nx, dtype.itemsize, budget_bytes=64 * 1024 * 1024
-    )
-    nb = ny // by
-
-    if topology.is_tripolar:
-        seam = chi[:, ny - 1, ::-1]
-    else:
-        seam = chi[:, ny - 1, :]
-    seam = seam.reshape(nz, 1, nx)
-
-    # Mosaic requires the sublane block dim to divide 8 or equal the array
-    # dim, so the per-block halo rows are pre-gathered into (nz*nb, 1, nx)
-    # arrays (tiny traffic) instead of being row-addressed out of chi.
-    idx_n = jnp.minimum((jnp.arange(nb) + 1) * by, ny - 1)
-    idx_s = jnp.maximum(jnp.arange(nb) * by - 1, 0)
-    north_rows = chi[:, idx_n, :].reshape(nz * nb, 1, nx)
-    south_rows = chi[:, idx_s, :].reshape(nz * nb, 1, nx)
-
-    # index maps take (jb, s); k slab for coefs/out/rows is max(s-1, 0)
-    blk = lambda jb, s: (jnp.maximum(s - 1, 0), jb, 0)
-    blk_in = lambda jb, s: (jnp.minimum(s, nz - 1), jb, 0)
-    row_nb = lambda jb, s: (jnp.maximum(s - 1, 0) * nb + jb, 0, 0)
-    row_seam = lambda jb, s: (jnp.maximum(s - 1, 0), 0, 0)
-
-    def spec(index_map, block):
-        return pl.BlockSpec(block, index_map_i32(index_map),
-                            memory_space=pltpu.VMEM)
-
+@functools.partial(jax.jit, static_argnames=("topology", "euler", "interpret"))
+def _stencil_call(coeffs: StencilCoeffs, chis, dt, topology: GridTopology,
+                  euler: bool, interpret: bool):
+    nb, nz, ny, nx = chis.shape
     kernel = functools.partial(
-        _stencil_kernel_blocked,
-        by=by, nb=nb, tripolar=topology.is_tripolar, dt=dt_static,
+        _stencil_kernel, nb=nb, nz=nz, ny=ny, nx=nx,
+        tripolar=topology.is_tripolar, euler=euler,
     )
-
-    return pl.pallas_call(
+    flat = lambda a: jnp.asarray(a).reshape(-1)
+    out = pl.pallas_call(
         kernel,
-        grid=(nb, nz + 1),
-        in_specs=[spec(blk, (1, by, nx))] * 7
-        + [
-            spec(blk_in, (1, by, nx)),
-            spec(row_nb, (1, 1, nx)),
-            spec(row_nb, (1, 1, nx)),
-            spec(row_seam, (1, 1, nx)),
-        ],
-        out_specs=spec(blk, (1, by, nx)),
-        out_shape=jax.ShapeDtypeStruct((nz, ny, nx), dtype),
-        scratch_shapes=[pltpu.VMEM((3, by, nx), dtype)],
+        grid=(pl.cdiv(ny * nx, _TILE), nz),
+        out_shape=jax.ShapeDtypeStruct((chis.size,), chis.dtype),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=_WARPS, num_stages=1),
         interpret=interpret,
-        # Safe for the same reason as the carry kernel: within a j-block
-        # out[k] is written after chi[k] was rotated into scratch, across
-        # j-blocks the halo rows/seam come from pre-gathered side streams,
-        # never from chi itself. Kills the per-step carry copies in
-        # propagation loops (measured 2 x 1.5 ms/step at 0.25 degree).
-        # Fused-Euler only (see _apply_pallas_carry).
-        input_output_aliases={7: 0} if dt_static is not None else {},
-        compiler_params=None if interpret else pltpu.CompilerParams(
-            vmem_limit_bytes=110 * 1024 * 1024,
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=15 * nz * ny * nx,
-            bytes_accessed=9 * nz * ny * nx * dtype.itemsize,
-            transcendentals=0,
-        ),
-    )(
-        coeffs.diag, coeffs.east, coeffs.west, coeffs.north,
-        coeffs.south, coeffs.top, coeffs.bottom, chi, north_rows,
-        south_rows, seam.astype(dtype),
-    )
+        name="otmb_stencil_multi",
+    )(flat(coeffs.diag), flat(coeffs.east), flat(coeffs.west),
+      flat(coeffs.north), flat(coeffs.south), flat(coeffs.top),
+      flat(coeffs.bottom), flat(chis), jnp.asarray(dt, chis.dtype).reshape(1))
+    return out.reshape(chis.shape)
 
 
-@functools.partial(jax.jit, static_argnames=(
-    "topology", "dt_static", "nsteps", "interpret", "by_static"))
-def _propagate_pallas_blocked(coeffs: StencilCoeffs, chi,
-                              topology: GridTopology, dt_static,
-                              nsteps: int, interpret: bool,
-                              by_static=None):
-    """Propagation loop over the j-blocked fused Euler kernel with a
-    SINGLE-USE tracer carry.
-
-    The plain per-step apply derives the halo-row/seam side streams by
-    gathering from the carried field, which gives chi a second consumer
-    and forces XLA to protect the chi->out alias with a full-array copy
-    each iteration (1.5 ms/step at 0.25 degree). Here the kernel itself
-    emits every output block's first and last row into two tiny side
-    outputs; the next step's halo-row and seam streams are assembled
-    from those (O(nz*nb*nx) jnp glue), so the big field's only consumer
-    is the kernel and the loop runs copy-free at the kernel's own
-    roofline speed."""
-    nz, ny, nx = topology.shape3d
-    chi = jnp.asarray(chi)
-    dtype = chi.dtype
-    by = by_static if by_static else _pick_j_block(
-        ny, nx, dtype.itemsize, budget_bytes=64 * 1024 * 1024
-    )
-    nb = ny // by
-    tripolar = topology.is_tripolar
-
-    def rows_from(first, last):
-        """Assemble next-step north/south/seam streams from the blocks'
-        first/last rows: north of block jb = first row of block jb+1
-        (clamped to the global top row), south = last row of jb-1
-        (clamped to the global bottom row)."""
-        f = first.reshape(nz, nb, nx)
-        l = last.reshape(nz, nb, nx)
-        north = jnp.concatenate([f[:, 1:, :], l[:, nb - 1 :, :]], axis=1)
-        south = jnp.concatenate([f[:, :1, :], l[:, : nb - 1, :]], axis=1)
-        top = l[:, nb - 1, :]
-        seam = (top[:, ::-1] if tripolar else top).reshape(nz, 1, nx)
-        return (north.reshape(nz * nb, 1, nx),
-                south.reshape(nz * nb, 1, nx), seam)
-
-    # First-step streams come from the initial field (one-time gathers).
-    idx_n = jnp.minimum((jnp.arange(nb) + 1) * by, ny - 1)
-    idx_s = jnp.maximum(jnp.arange(nb) * by - 1, 0)
-    north0 = chi[:, idx_n, :].reshape(nz * nb, 1, nx)
-    south0 = chi[:, idx_s, :].reshape(nz * nb, 1, nx)
-    seam0 = (chi[:, ny - 1, ::-1] if tripolar
-             else chi[:, ny - 1, :]).reshape(nz, 1, nx)
-
-    blk = lambda jb, s: (jnp.maximum(s - 1, 0), jb, 0)
-    blk_in = lambda jb, s: (jnp.minimum(s, nz - 1), jb, 0)
-    row_nb = lambda jb, s: (jnp.maximum(s - 1, 0) * nb + jb, 0, 0)
-    row_seam = lambda jb, s: (jnp.maximum(s - 1, 0), 0, 0)
-
-    def spec(index_map, block):
-        return pl.BlockSpec(block, index_map_i32(index_map),
-                            memory_space=pltpu.VMEM)
-
-    kernel = functools.partial(
-        _stencil_kernel_blocked,
-        by=by, nb=nb, tripolar=tripolar, dt=dt_static, emit_rows=True,
-    )
-
-    step_call = pl.pallas_call(
-        kernel,
-        grid=(nb, nz + 1),
-        in_specs=[spec(blk, (1, by, nx))] * 7
-        + [
-            spec(blk_in, (1, by, nx)),
-            spec(row_nb, (1, 1, nx)),
-            spec(row_nb, (1, 1, nx)),
-            spec(row_seam, (1, 1, nx)),
-        ],
-        out_specs=[
-            spec(blk, (1, by, nx)),
-            spec(row_nb, (1, 1, nx)),
-            spec(row_nb, (1, 1, nx)),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((nz, ny, nx), dtype),
-            jax.ShapeDtypeStruct((nz * nb, 1, nx), dtype),
-            jax.ShapeDtypeStruct((nz * nb, 1, nx), dtype),
-        ],
-        scratch_shapes=[pltpu.VMEM((3, by, nx), dtype)],
-        interpret=interpret,
-        input_output_aliases={7: 0},
-        compiler_params=None if interpret else pltpu.CompilerParams(
-            vmem_limit_bytes=110 * 1024 * 1024,
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=15 * nz * ny * nx,
-            bytes_accessed=9 * nz * ny * nx * dtype.itemsize,
-            transcendentals=0,
-        ),
-    )
-
-    def body(_, carry):
-        c, nrows, srows, seam = carry
-        out, first, last = step_call(
-            coeffs.diag, coeffs.east, coeffs.west, coeffs.north,
-            coeffs.south, coeffs.top, coeffs.bottom, c, nrows, srows, seam,
-        )
-        return (out,) + rows_from(first, last)
-
-    out, *_ = jax.lax.fori_loop(
-        0, nsteps, body, (chi, north0, south0, seam0.astype(dtype))
-    )
-    return out
-
-
-def euler_propagate_pallas(
-    coeffs: StencilCoeffs,
-    chi,
-    dt: float,
-    nsteps: int,
-    topology: GridTopology,
-    interpret: bool | None = None,
-    variant: str = "auto",
-    by_static: int | None = None,
-):
-    """nsteps of chi - dt * T @ chi as ONE compiled loop over the fused
-    kernel (the single-chip analogue of `euler_propagate_halo_pallas`).
-
-    For VMEM-sized grids this is a plain fori_loop over
-    `euler_step_pallas` (the carry kernel's chi->out alias already makes
-    that copy-free). For j-blocked grids (0.25 degree) it switches to the
-    loop-optimized blocked kernel that emits the next step's halo-row
-    streams itself, keeping the tracer carry single-use — measured ~1.5x
-    the per-step throughput of calling `euler_step_pallas` in a loop at
-    1440x1080x75."""
-    if interpret is None:
-        interpret = _default_interpret()
-    chi = jnp.asarray(chi)
-    _check_32bit(chi, interpret)
-    v = _resolve_variant(variant, topology, chi.dtype.itemsize)
-    if v != "blocked":
-        def body(_, c):
-            return euler_step_pallas(coeffs, c, float(dt), topology,
-                                     interpret, variant)
-
-        return jax.lax.fori_loop(0, int(nsteps), body, chi)
-    if interpret:
-        return _propagate_pallas_blocked(
-            coeffs, chi, topology, float(dt), int(nsteps), interpret,
-            by_static,
-        )
-    with _x64_off():
-        return _propagate_pallas_blocked(
-            coeffs, chi, topology, float(dt), int(nsteps), interpret,
-            by_static,
-        )
-
-
-def _default_interpret() -> bool:
-    return jax.default_backend() != "tpu"
-
-
-def _x64_off():
-    """Trace-time context forcing 32-bit literal/promotion semantics.
-
-    Mosaic has no i64/f64; under jax_enable_x64 stray Python literals
-    otherwise promote to 64-bit inside the kernel and break lowering
-    (int64 converts recurse, f64 fails to legalize). All kernel operands
-    are 32-bit already, so this only pins literals.
-    """
-    try:
-        from jax._src.config import enable_x64
-
-        return enable_x64(False)
-    except ImportError:  # private API moved: x64 users lose only this guard
-        import contextlib
-
-        return contextlib.nullcontext()
-
-
-def _check_32bit(chi, interpret):
-    """Mosaic compilation is 32-bit only; interpret mode (CPU tests)
-    evaluates in plain XLA and may run any dtype."""
-    if not interpret and chi.dtype.itemsize > 4:
+def _check_batch(chis, topology: GridTopology):
+    chis = jnp.asarray(chis)
+    if chis.ndim != 4 or chis.shape[1:] != topology.shape3d:
         raise ValueError(
-            f"pallas stencil kernels are 32-bit only (got {chi.dtype}); "
-            "cast to float32/bfloat16 or use ops.apply.apply_stencil"
+            f"chis must be (B, {', '.join(map(str, topology.shape3d))}); "
+            f"got {chis.shape}"
         )
-
-
-_FULL_SLAB_VMEM_BUDGET = 64 * 1024 * 1024
-
-
-def _resolve_variant(variant: str, topology: GridTopology, itemsize: int) -> str:
-    """'auto' picks the full-slab carry kernel when a k-slab working set
-    fits VMEM, else the j-blocked kernel (needed at 0.25-degree scale)."""
-    if variant != "auto":
-        return variant
-    _, ny, nx = topology.shape3d
-    full_set = 12 * ny * nx * itemsize * 2
-    return "carry" if full_set <= _FULL_SLAB_VMEM_BUDGET else "blocked"
-
-
-#: while_loop iteration bound under which the j-blocked kernel is
-#: admitted on real TPU: round-5 bracketing (tests/repro_blocked_while.py)
-#: measured PASS at 1000 iterations and CRASH at 1500, so 500 keeps a
-#: 2x safety margin under the lowest measured PASS point.
-BLOCKED_WHILE_SAFE_ITERS = 500
-
-
-def blocked_unstable_in_while(topology: GridTopology, itemsize: int,
-                              iters: int | None = None) -> bool:
-    """True when a matvec at this grid size would use the j-blocked kernel
-    on a REAL TPU inside a `lax.while_loop` — the one runtime pattern this
-    repo treats as unsafe at production iteration counts.
-
-    Evidence (tests/repro_blocked_while.py; v5e, jax 0.9.0): the blocked
-    kernel inside a BiCGStab while_loop at 1440x1080x75 PASSES at 30,
-    200, and 1000 iterations but CRASHES the worker at 1500 and 2000
-    ("UNAVAILABLE: TPU worker process crashed or restarted") — an
-    iteration-count-dependent runtime fault. Excluded causes: buffer
-    aliasing (round 2, both ways), the x64 index-map Mosaic bug (fixed
-    separately), and the multi-program launch count alone (round 5: a
-    content-minimal blocked COPY kernel with the same grid shape PASSES
-    2000 while_loop iterations — the trigger is specific to the stencil
-    kernel's content, scaled by repetition). The SAME kernel driven by
-    `lax.fori_loop` chunks is stable at roofline for arbitrarily many
-    total iterations, so callers that hit the guard should route to the
-    host-chunked fori_loop Krylov (`models.solvers.solve_shifted_chunked`).
-
-    `iters`: the caller's loop bound, when known. Loops bounded by
-    `BLOCKED_WHILE_SAFE_ITERS` (= 500, a 2x margin under the bracketed
-    1000-iteration PASS) are admitted — the round-4 blanket size
-    predicate demoted even short while_loops. OTMB_ALLOW_BLOCKED_WHILE=1
-    opts back in entirely (used by the repro script; expect a worker
-    crash + multi-minute backend recovery).
-    """
-    import os
-
-    if os.environ.get("OTMB_ALLOW_BLOCKED_WHILE") == "1":
-        return False
-    if iters is not None and iters <= BLOCKED_WHILE_SAFE_ITERS:
-        return False
-    return (not _default_interpret()
-            and _resolve_variant("auto", topology, itemsize) == "blocked")
-
-
-_IMPLS = {
-    "simple": _apply_pallas,
-    "carry": _apply_pallas_carry,
-    "blocked": _apply_pallas_blocked,
-}
-
-
-def apply_stencil_pallas(
-    coeffs: StencilCoeffs,
-    chi,
-    topology: GridTopology,
-    interpret: bool | None = None,
-    variant: str = "auto",
-    by_static: int | None = None,
-):
-    """y = T @ chi via the fused Pallas kernel.
-
-    `interpret=None` auto-selects interpreter mode off-TPU so the kernel
-    stays testable on the CPU backend. `variant`: "auto" (default),
-    "carry" (full k-slabs, chi streamed once via VMEM scratch rotation),
-    "blocked" (j-blocked for grids whose slab set exceeds VMEM), or
-    "simple" (chi streamed three times; fallback/reference kernel).
-    """
-    if interpret is None:
-        interpret = _default_interpret()
-    chi = jnp.asarray(chi)
-    _check_32bit(chi, interpret)
-    v = _resolve_variant(variant, topology, chi.dtype.itemsize)
-    if interpret:
-        if v == "blocked":
-            return _apply_pallas_blocked(coeffs, chi, topology, None,
-                                         interpret, by_static)
-        return _IMPLS[v](coeffs, chi, topology, None, interpret)
-    with _x64_off():
-        if v == "blocked":
-            return _apply_pallas_blocked(coeffs, chi, topology, None,
-                                         interpret, by_static)
-        return _IMPLS[v](coeffs, chi, topology, None, interpret)
-
-
-def euler_step_pallas(
-    coeffs: StencilCoeffs,
-    chi,
-    dt: float,
-    topology: GridTopology,
-    interpret: bool | None = None,
-    variant: str = "auto",
-    by_static: int | None = None,
-):
-    """chi - dt * T @ chi in a single fused kernel (no extra HBM pass for
-    the AXPY)."""
-    if interpret is None:
-        interpret = _default_interpret()
-    chi = jnp.asarray(chi)
-    _check_32bit(chi, interpret)
-    v = _resolve_variant(variant, topology, chi.dtype.itemsize)
-    if interpret:
-        if v == "blocked":
-            return _apply_pallas_blocked(coeffs, chi, topology, float(dt),
-                                         interpret, by_static)
-        return _IMPLS[v](coeffs, chi, topology, float(dt), interpret)
-    with _x64_off():
-        if v == "blocked":
-            return _apply_pallas_blocked(coeffs, chi, topology, float(dt),
-                                         interpret, by_static)
-        return _IMPLS[v](coeffs, chi, topology, float(dt), interpret)
-
-# ---------------------------------------------------------------------------
-# Multi-tracer batched kernel
-# ---------------------------------------------------------------------------
-#
-# The single-tracer kernels are HBM-bound at 9 streams/cell (7 coefficient
-# reads + 1 tracer read + 1 write). Real transport workloads propagate MANY
-# tracers through the SAME operator (tracer ensembles, age + sequestration +
-# dye releases, TTD boundary propagators), and the operator coefficients
-# don't change per tracer — so batching B tracers into one kernel fetches
-# the 7 coefficient slabs ONCE per k level and shares them across the whole
-# batch. Per-tracer HBM traffic drops from 9 to (2 + 7/B) streams: ~3.1x
-# throughput per tracer at B=8. This has no reference counterpart (the
-# reference applies its sparse matrix to one vector at a time); it is the
-# structural TPU-native win for ensemble workloads.
-
-
-def _stencil_kernel_multi(
-    diag_ref, e_ref, w_ref, n_ref, s_ref, t_ref, b_ref,
-    chi_in_ref, seam_ref,
-    out_ref,
-    chi_scr,
-    *,
-    ny: int,
-    dt: float | None,
-):
-    """Batched k-carry kernel: blocks carry ALL B tracers for one k level
-    ((B, 1, ny, nx) chi blocks vs (1, ny, nx) coefficient blocks, broadcast
-    in-kernel), with the same 3-slot VMEM scratch rotation as
-    `_stencil_kernel_carry` so each tracer is still streamed from HBM
-    exactly once."""
-    step = pl.program_id(0)
-    k = step - 1
-
-    def slot_select(slot_idx):
-        return jnp.where(
-            slot_idx == 0,
-            chi_scr[0],
-            jnp.where(slot_idx == 1, chi_scr[1], chi_scr[2]),
-        )
-
-    @pl.when(step > 0)
-    def _():
-        chi = slot_select((k + _I32_3) % _I32_3)      # (B, ny, nx)
-        chi_up = slot_select((k + _I32_2) % _I32_3)
-        chi_up = jnp.where(k > 0, chi_up, 0.0)
-        chi_dn = chi_in_ref[:, 0]                     # chi[:, k+1]
-
-        nx = chi.shape[2]
-        east = pltpu.roll(chi, np.int32(nx - 1), 2)
-        west = pltpu.roll(chi, np.int32(1), 2)
-        north = jnp.concatenate([chi[:, 1:, :], seam_ref[:, 0]], axis=1)
-        south = jnp.concatenate([chi[:, 0:1, :], chi[:, : ny - 1, :]],
-                                axis=1)
-
-        up = lambda r: r[0].astype(chi.dtype)         # (ny,nx) -> broadcast
-        acc = up(diag_ref) * chi
-        acc += up(e_ref) * east + up(w_ref) * west
-        acc += up(n_ref) * north + up(s_ref) * south
-        acc += up(t_ref) * chi_up + up(b_ref) * chi_dn
-
-        if dt is not None:
-            acc = chi - dt * acc
-        out_ref[:, 0] = acc
-
-    write_slot = step % _I32_3
-    for slot in range(3):
-        @pl.when(write_slot == slot)
-        def _(slot=slot):
-            chi_scr[slot] = chi_in_ref[:, 0]
-
-
-@functools.partial(
-    jax.jit, static_argnames=("topology", "dt_static", "interpret")
-)
-def _apply_pallas_multi(coeffs: StencilCoeffs, chis, topology: GridTopology,
-                        dt_static, interpret: bool):
-    nz, ny, nx = topology.shape3d
-    chis = jnp.asarray(chis)  # (B, nz, ny, nx) — natural batch-major layout
-    B = chis.shape[0]
-    dtype = chis.dtype
-
-    coef_k = lambda s: (jnp.maximum(s - 1, 0), 0, 0)
-    chi_in = lambda s: (0, jnp.minimum(s, nz - 1), 0, 0)
-    chi_out = lambda s: (0, jnp.maximum(s - 1, 0), 0, 0)
-
-    if topology.is_tripolar:
-        seam = chis[:, :, ny - 1, ::-1]
-    else:
-        seam = chis[:, :, ny - 1, :]
-    seam = seam.reshape(B, nz, 1, nx)
-
-    kernel = functools.partial(_stencil_kernel_multi, ny=ny, dt=dt_static)
-
-    def spec(index_map, block):
-        return pl.BlockSpec(block, index_map_i32(index_map),
-                            memory_space=pltpu.VMEM)
-
-    return pl.pallas_call(
-        kernel,
-        grid=(nz + 1,),
-        in_specs=[spec(coef_k, (1, ny, nx))] * 7
-        + [spec(chi_in, (B, 1, ny, nx)), spec(chi_out, (B, 1, 1, nx))],
-        out_specs=spec(chi_out, (B, 1, ny, nx)),
-        out_shape=jax.ShapeDtypeStruct((B, nz, ny, nx), dtype),
-        scratch_shapes=[pltpu.VMEM((3, B, ny, nx), dtype)],
-        interpret=interpret,
-        # Same write-after-consume argument as the single-tracer carry
-        # kernel, batched; fused-Euler only (see _apply_pallas_carry).
-        input_output_aliases={7: 0} if dt_static is not None else {},
-        compiler_params=None if interpret else pltpu.CompilerParams(
-            vmem_limit_bytes=110 * 1024 * 1024,
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=15 * B * nz * ny * nx,
-            bytes_accessed=(2 * B + 7) * nz * ny * nx * dtype.itemsize,
-            transcendentals=0,
-        ),
-    )(
-        coeffs.diag, coeffs.east, coeffs.west, coeffs.north,
-        coeffs.south, coeffs.top, coeffs.bottom, chis, seam.astype(dtype),
-    )
-
-
-def _multi_vmem_ok(B: int, topology: GridTopology, itemsize: int) -> bool:
-    """The batched carry kernel needs the 3-slot (3, B, ny, nx) scratch
-    plus double-buffered (B, ny, nx) chi/out blocks resident in VMEM."""
-    _, ny, nx = topology.shape3d
-    slab = ny * nx * itemsize
-    need = 3 * B * slab + 2 * 2 * B * slab + 2 * 8 * slab
-    return need <= 100 * 1024 * 1024
-
-
-def apply_stencil_pallas_multi(
-    coeffs: StencilCoeffs,
-    chis,
-    topology: GridTopology,
-    interpret: bool | None = None,
-):
-    """y[b] = T @ chis[b] for a batch of tracers in ONE fused kernel.
-
-    `chis` is (B, nz, ny, nx). The 7 coefficient slabs are fetched once
-    per k level and shared across the batch, so per-tracer HBM traffic is
-    (2 + 7/B) streams instead of 9. Falls back to a scanned single-tracer
-    kernel when the batched working set would not fit VMEM (e.g. at
-    0.25-degree scale)."""
-    if interpret is None:
-        interpret = _default_interpret()
-    chis = jnp.asarray(chis)
-    _check_32bit(chis, interpret)
-    if chis.ndim != 4:
-        raise ValueError(f"chis must be (B, nz, ny, nx); got {chis.shape}")
-    if _multi_vmem_ok(chis.shape[0], topology, chis.dtype.itemsize):
-        with _x64_off() if not interpret else contextlib.nullcontext():
-            return _apply_pallas_multi(coeffs, chis, topology, None,
-                                       interpret)
-    _, ny, nx = topology.shape3d
-    if _pick_j_block_multi(chis.shape[0], ny, nx, chis.dtype.itemsize,
-                           96 * 1024 * 1024) is not None:
-        with _x64_off() if not interpret else contextlib.nullcontext():
-            return _apply_pallas_blocked_multi(coeffs, chis, topology,
-                                               None, interpret)
-    return jax.lax.map(
-        lambda c: apply_stencil_pallas(coeffs, c, topology, interpret),
-        chis,
-    )
-
-
-def euler_step_pallas_multi(
-    coeffs: StencilCoeffs,
-    chis,
-    dt: float,
-    topology: GridTopology,
-    interpret: bool | None = None,
-):
-    """chis - dt * T @ chis for a batch of tracers, fused in one kernel
-    (see `apply_stencil_pallas_multi` for the batching rationale)."""
-    if interpret is None:
-        interpret = _default_interpret()
-    chis = jnp.asarray(chis)
-    _check_32bit(chis, interpret)
-    if chis.ndim != 4:
-        raise ValueError(f"chis must be (B, nz, ny, nx); got {chis.shape}")
-    if _multi_vmem_ok(chis.shape[0], topology, chis.dtype.itemsize):
-        with _x64_off() if not interpret else contextlib.nullcontext():
-            return _apply_pallas_multi(coeffs, chis, topology, float(dt),
-                                       interpret)
-    _, ny, nx = topology.shape3d
-    if _pick_j_block_multi(chis.shape[0], ny, nx, chis.dtype.itemsize,
-                           96 * 1024 * 1024) is not None:
-        with _x64_off() if not interpret else contextlib.nullcontext():
-            return _apply_pallas_blocked_multi(coeffs, chis, topology,
-                                               float(dt), interpret)
-    return jax.lax.map(
-        lambda c: euler_step_pallas(coeffs, c, float(dt), topology,
-                                    interpret),
-        chis,
-    )
-
-
-# ---------------------------------------------------------------------------
-# j-blocked multi-tracer kernels (batching at 0.25-degree scale)
-# ---------------------------------------------------------------------------
-#
-# The full-slab batched kernel above needs 3*B k-slabs resident in VMEM,
-# which the 0.25-degree grid cannot afford; this family combines the
-# j-blocking of `_stencil_kernel_blocked` with the tracer batching of
-# `_stencil_kernel_multi`: (B, 1, by, nx) tracer blocks against
-# (1, by, nx) coefficient blocks, so the coefficient streams are still
-# fetched once per (j-block, k) and shared across the batch — per-tracer
-# HBM traffic 2 + 7/B streams at the scale-out grid size.
-
-
-def _stencil_kernel_blocked_multi(
-    diag_ref, e_ref, w_ref, n_ref, s_ref, t_ref, b_ref,
-    chi_in_ref, north_row_ref, south_row_ref, seam_ref,
-    out_ref,
-    *rest,
-    by: int,
-    nb: int,
-    tripolar: bool,
-    dt: float | None,
-    emit_rows: bool = False,
-):
-    if emit_rows:
-        first_ref, last_ref, chi_scr = rest
-    else:
-        (chi_scr,) = rest
-    jb = pl.program_id(0)
-    step = pl.program_id(1)
-    k = step - 1
-
-    def slot_select(slot_idx):
-        return jnp.where(
-            slot_idx == 0,
-            chi_scr[0],
-            jnp.where(slot_idx == 1, chi_scr[1], chi_scr[2]),
-        )
-
-    @pl.when(step > 0)
-    def _():
-        chi = slot_select((k + _I32_3) % _I32_3)      # (B, by, nx)
-        chi_up = slot_select((k + _I32_2) % _I32_3)
-        chi_up = jnp.where(k > 0, chi_up, 0.0)
-        chi_dn = chi_in_ref[:, 0]
-
-        nx = chi.shape[2]
-        east = pltpu.roll(chi, np.int32(nx - 1), 2)
-        west = pltpu.roll(chi, np.int32(1), 2)
-
-        if tripolar:
-            last_row = jnp.where(
-                jb == nb - 1, seam_ref[:, 0], north_row_ref[:, 0]
-            )
-        else:
-            last_row = north_row_ref[:, 0]
-        north = jnp.concatenate([chi[:, 1:, :], last_row], axis=1)
-        south = jnp.concatenate(
-            [south_row_ref[:, 0], chi[:, : by - 1, :]], axis=1
-        )
-
-        up = lambda r: r[0].astype(chi.dtype)  # (by, nx), broadcast on B
-        acc = up(diag_ref) * chi
-        acc += up(e_ref) * east + up(w_ref) * west
-        acc += up(n_ref) * north + up(s_ref) * south
-        acc += up(t_ref) * chi_up + up(b_ref) * chi_dn
-
-        if dt is not None:
-            acc = chi - dt * acc
-        out_ref[:, 0] = acc
-        if emit_rows:
-            first_ref[:, 0] = acc[:, 0:1, :]
-            last_ref[:, 0] = acc[:, by - 1 : by, :]
-
-    write_slot = step % _I32_3
-    for slot in range(3):
-        @pl.when(write_slot == slot)
-        def _(slot=slot):
-            chi_scr[slot] = chi_in_ref[:, 0]
-
-
-def _pick_j_block_multi(B: int, ny: int, nx: int, itemsize: int,
-                        budget_bytes: int) -> int | None:
-    """Legal j-block for the batched blocked kernel, or None if no block
-    fits: double-buffered (7 coef + 2B tracer) blocks + the (3, B) chi
-    scratch must fit the budget; same divisibility/sublane rules and
-    mid-size preference as `_pick_j_block`."""
-    need = lambda by: ((7 + 2 * B) * 2 + 3 * B) * by * nx * itemsize
-    divisors = sorted((d for d in range(1, ny + 1) if ny % d == 0),
-                      reverse=True)
-    legal = [
-        d for d in divisors
-        if (d % 8 == 0 or d == ny) and need(d) <= budget_bytes
-    ]
-    preferred = [d for d in legal if d <= 256]
-    if preferred:
-        return preferred[0]
-    return legal[-1] if legal else None
-
-
-def _blocked_multi_specs(B, nz, ny, nx, by, nb):
-    blk = lambda jb, s: (0, jnp.maximum(s - 1, 0), jb, 0)
-    blk_in = lambda jb, s: (0, jnp.minimum(s, nz - 1), jb, 0)
-    row_nb = lambda jb, s: (0, jnp.maximum(s - 1, 0) * nb + jb, 0, 0)
-    row_seam = lambda jb, s: (0, jnp.maximum(s - 1, 0), 0, 0)
-    coef = lambda jb, s: (jnp.maximum(s - 1, 0), jb, 0)
-
-    def spec(index_map, block):
-        return pl.BlockSpec(block, index_map_i32(index_map),
-                            memory_space=pltpu.VMEM)
-
-    in_specs = [spec(coef, (1, by, nx))] * 7 + [
-        spec(blk_in, (B, 1, by, nx)),
-        spec(row_nb, (B, 1, 1, nx)),
-        spec(row_nb, (B, 1, 1, nx)),
-        spec(row_seam, (B, 1, 1, nx)),
-    ]
-    out_spec = spec(blk, (B, 1, by, nx))
-    row_out = spec(row_nb, (B, 1, 1, nx))
-    return in_specs, out_spec, row_out
-
-
-def _blocked_multi_side_streams(chis, topology, by, nb):
-    B, nz, ny, nx = chis.shape
-    idx_n = jnp.minimum((jnp.arange(nb) + 1) * by, ny - 1)
-    idx_s = jnp.maximum(jnp.arange(nb) * by - 1, 0)
-    north_rows = chis[:, :, idx_n, :].reshape(B, nz * nb, 1, nx)
-    south_rows = chis[:, :, idx_s, :].reshape(B, nz * nb, 1, nx)
-    seam = (chis[:, :, ny - 1, ::-1] if topology.is_tripolar
-            else chis[:, :, ny - 1, :]).reshape(B, nz, 1, nx)
-    return north_rows, south_rows, seam
-
-
-@functools.partial(jax.jit, static_argnames=("topology", "dt_static",
-                                             "interpret", "by_static"))
-def _apply_pallas_blocked_multi(coeffs: StencilCoeffs, chis,
-                                topology: GridTopology, dt_static,
-                                interpret: bool, by_static=None):
-    nz, ny, nx = topology.shape3d
-    chis = jnp.asarray(chis)
-    B = chis.shape[0]
-    dtype = chis.dtype
-    by = by_static or _pick_j_block_multi(
-        B, ny, nx, dtype.itemsize, budget_bytes=96 * 1024 * 1024
-    )
-    if by is None:
-        raise ValueError(f"no legal j-block for B={B} at {(ny, nx)}")
-    nb = ny // by
-    north_rows, south_rows, seam = _blocked_multi_side_streams(
-        chis, topology, by, nb
-    )
-    in_specs, out_spec, _ = _blocked_multi_specs(B, nz, ny, nx, by, nb)
-    kernel = functools.partial(
-        _stencil_kernel_blocked_multi,
-        by=by, nb=nb, tripolar=topology.is_tripolar, dt=dt_static,
-    )
-    return pl.pallas_call(
-        kernel,
-        grid=(nb, nz + 1),
-        in_specs=in_specs,
-        out_specs=out_spec,
-        out_shape=jax.ShapeDtypeStruct((B, nz, ny, nx), dtype),
-        scratch_shapes=[pltpu.VMEM((3, B, by, nx), dtype)],
-        interpret=interpret,
-        # Fused-Euler only (see _apply_pallas_carry).
-        input_output_aliases={7: 0} if dt_static is not None else {},
-        compiler_params=None if interpret else pltpu.CompilerParams(
-            vmem_limit_bytes=110 * 1024 * 1024,
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=15 * B * nz * ny * nx,
-            bytes_accessed=(2 * B + 7) * nz * ny * nx * dtype.itemsize,
-            transcendentals=0,
-        ),
-    )(
-        coeffs.diag, coeffs.east, coeffs.west, coeffs.north,
-        coeffs.south, coeffs.top, coeffs.bottom, chis,
-        north_rows, south_rows, seam.astype(dtype),
-    )
-
-
-@functools.partial(jax.jit, static_argnames=(
-    "topology", "dt_static", "nsteps", "interpret", "by_static"))
-def _propagate_pallas_blocked_multi(coeffs: StencilCoeffs, chis,
-                                    topology: GridTopology, dt_static,
-                                    nsteps: int, interpret: bool,
-                                    by_static=None):
-    """Batched analogue of `_propagate_pallas_blocked`: single-use tracer
-    carry via kernel-emitted halo rows."""
-    nz, ny, nx = topology.shape3d
-    chis = jnp.asarray(chis)
-    B = chis.shape[0]
-    dtype = chis.dtype
-    by = by_static or _pick_j_block_multi(
-        B, ny, nx, dtype.itemsize, budget_bytes=96 * 1024 * 1024
-    )
-    if by is None:
-        raise ValueError(f"no legal j-block for B={B} at {(ny, nx)}")
-    nb = ny // by
-    tripolar = topology.is_tripolar
-
-    def rows_from(first, last):
-        f = first.reshape(B, nz, nb, nx)
-        la = last.reshape(B, nz, nb, nx)
-        north = jnp.concatenate([f[:, :, 1:, :], la[:, :, nb - 1 :, :]],
-                                axis=2)
-        south = jnp.concatenate([f[:, :, :1, :], la[:, :, : nb - 1, :]],
-                                axis=2)
-        top = la[:, :, nb - 1, :]
-        seam = (top[:, :, ::-1] if tripolar else top).reshape(B, nz, 1, nx)
-        return (north.reshape(B, nz * nb, 1, nx),
-                south.reshape(B, nz * nb, 1, nx), seam)
-
-    north0, south0, seam0 = _blocked_multi_side_streams(
-        chis, topology, by, nb
-    )
-    in_specs, out_spec, row_out = _blocked_multi_specs(B, nz, ny, nx, by, nb)
-    kernel = functools.partial(
-        _stencil_kernel_blocked_multi,
-        by=by, nb=nb, tripolar=tripolar, dt=dt_static, emit_rows=True,
-    )
-    step_call = pl.pallas_call(
-        kernel,
-        grid=(nb, nz + 1),
-        in_specs=in_specs,
-        out_specs=[out_spec, row_out, row_out],
-        out_shape=[
-            jax.ShapeDtypeStruct((B, nz, ny, nx), dtype),
-            jax.ShapeDtypeStruct((B, nz * nb, 1, nx), dtype),
-            jax.ShapeDtypeStruct((B, nz * nb, 1, nx), dtype),
-        ],
-        scratch_shapes=[pltpu.VMEM((3, B, by, nx), dtype)],
-        interpret=interpret,
-        input_output_aliases={7: 0},
-        compiler_params=None if interpret else pltpu.CompilerParams(
-            vmem_limit_bytes=110 * 1024 * 1024,
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=15 * B * nz * ny * nx,
-            bytes_accessed=(2 * B + 7) * nz * ny * nx * dtype.itemsize,
-            transcendentals=0,
-        ),
-    )
-
-    def body(_, carry):
-        c, nrows, srows, seam = carry
-        out, first, last = step_call(
-            coeffs.diag, coeffs.east, coeffs.west, coeffs.north,
-            coeffs.south, coeffs.top, coeffs.bottom, c, nrows, srows, seam,
-        )
-        return (out,) + rows_from(first, last)
-
-    out, *_ = jax.lax.fori_loop(
-        0, nsteps, body, (chis, north0, south0, seam0.astype(dtype))
-    )
-    return out
-
-
-def euler_propagate_pallas_multi(
-    coeffs: StencilCoeffs,
-    chis,
-    dt: float,
-    nsteps: int,
-    topology: GridTopology,
-    interpret: bool | None = None,
-    by_static: int | None = None,
-):
-    """nsteps of the batched fused Euler step as one compiled loop:
-    full-slab batched kernel when 3*B k-slabs fit VMEM, else the
-    j-blocked batched kernel with kernel-emitted halo rows (single-use
-    carry), else a scanned single-tracer loop."""
-    if interpret is None:
-        interpret = _default_interpret()
-    chis = jnp.asarray(chis)
-    _check_32bit(chis, interpret)
-    if chis.ndim != 4:
-        raise ValueError(f"chis must be (B, nz, ny, nx); got {chis.shape}")
-    B = chis.shape[0]
-    _, ny, nx = topology.shape3d
-    if _multi_vmem_ok(B, topology, chis.dtype.itemsize):
-        def body(_, c):
-            return euler_step_pallas_multi(coeffs, c, float(dt), topology,
-                                           interpret)
-
-        return jax.lax.fori_loop(0, int(nsteps), body, chis)
-    by = by_static or _pick_j_block_multi(
-        B, ny, nx, chis.dtype.itemsize, budget_bytes=96 * 1024 * 1024
-    )
-    if by is not None:
-        if interpret:
-            return _propagate_pallas_blocked_multi(
-                coeffs, chis, topology, float(dt), int(nsteps), interpret,
-                by_static,
-            )
-        with _x64_off():
-            return _propagate_pallas_blocked_multi(
-                coeffs, chis, topology, float(dt), int(nsteps), interpret,
-                by_static,
-            )
-
-    def body(_, c):
-        return jax.lax.map(
-            lambda x: euler_step_pallas(coeffs, x, float(dt), topology,
-                                        interpret),
-            c,
-        )
-
-    return jax.lax.fori_loop(0, int(nsteps), body, chis)
+    return chis
+
+
+def apply_stencil_pallas_multi(coeffs: StencilCoeffs, chis,
+                               topology: GridTopology,
+                               route: str | None = None):
+    """y[b] = T @ chis[b] for a batch (B, nz, ny, nx) of tracers.
+
+    `route` (default: `kernel_route()`): ``"gpu"`` runs the compiled
+    kernel, ``"interpret"`` the same kernel in the Pallas interpreter,
+    ``"jnp"`` the plain `apply_stencil` broadcast over the batch."""
+    chis = _check_batch(chis, topology)
+    route = check_route(route or kernel_route())
+    if route == "jnp":
+        return apply_stencil(coeffs, chis, topology)
+    return _stencil_pallas(coeffs, chis, 0.0, topology, euler=False,
+                           interpret=route == "interpret")
+
+
+def euler_step_pallas_multi(coeffs: StencilCoeffs, chis, dt,
+                            topology: GridTopology, route: str | None = None):
+    """chis - dt * T @ chis for a batch of tracers in one pass (see
+    `apply_stencil_pallas_multi` for `route`); `dt` is a scalar, traced or
+    not."""
+    chis = _check_batch(chis, topology)
+    route = check_route(route or kernel_route())
+    if route == "jnp":
+        return chis - dt * apply_stencil(coeffs, chis, topology)
+    return _stencil_pallas(coeffs, chis, dt, topology, euler=True,
+                           interpret=route == "interpret")

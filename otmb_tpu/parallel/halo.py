@@ -4,7 +4,7 @@ The GSPMD path (jit over sharded arrays) is correct and automatic; this
 module is the hand-scheduled alternative: a 1-cell halo of the tracer
 field is exchanged with neighbor shards via `jax.lax.ppermute` over the
 ('y', 'x') mesh, then the 7-point stencil is applied shard-locally. This
-pins the communication pattern (neighbor ppermutes riding ICI, no
+pins the communication pattern (neighbor ppermutes, no
 accidental all-gathers) and is the substrate for comm/compute overlap.
 
 Topology handling across shards:

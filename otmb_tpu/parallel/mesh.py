@@ -1,7 +1,7 @@
 """Device mesh and sharding for multi-chip domain decomposition.
 
 The reference is single-threaded Julia with no distributed code (SURVEY
-section 2.2); scale-out here is new, TPU-native architecture: all
+section 2.2); scale-out here is new architecture: all
 (nz, ny, nx) fields are sharded over a 2D ('y', 'x') device mesh —
 horizontal domain decomposition, the structured-grid analogue of
 tensor/sequence parallelism. The k (depth) axis stays local to each shard
@@ -9,13 +9,20 @@ because both the grid preprocessing (cumsum over k) and the flux closure
 (reversed cumsum over k) are sequential in k.
 
 Under jit/GSPMD the topology shifts (roll in i, shifted concats in j, the
-tripolar fold) lower to XLA collective-permutes over ICI automatically;
+tripolar fold) lower to XLA collective-permutes automatically (NCCL on
+GPUs);
 `parallel/halo.py` provides the explicit shard_map halo-exchange variant
 for the hand-tuned path.
 
+Mesh shape: `make_grid_mesh` defaults to the most-square factorization.
+On cards joined all to all (NVLink) the shape follows the algorithm
+alone: `mesh_shape=(n, 1)` splits only j, so each halo is a contiguous
+row, the periodic i wrap stays shard-local, and the tripolar fold is
+exchanged within the top shard — two collective-permutes per matvec
+instead of five.
+
 Multi-host: call `jax.distributed.initialize()` before building the mesh;
-`make_grid_mesh` then spans all processes' devices, with the 'x' axis
-innermost so x-neighbor exchanges ride intra-host ICI.
+`make_grid_mesh` then spans all processes' devices.
 """
 
 from __future__ import annotations
@@ -85,10 +92,10 @@ def pspec_tree(tree):
 def initialize_distributed(**kwargs) -> None:
     """Multi-host startup: call once per process before building the mesh.
 
-    Thin wrapper over `jax.distributed.initialize` (coordinator address,
-    process count/index are auto-detected on TPU pods; pass them for other
-    launchers). After this, `jax.devices()` spans the whole slice and
-    `make_grid_mesh()` builds a global ('y', 'x') mesh whose 'x' axis is
-    innermost so x-halo ppermutes ride intra-host ICI.
+    Thin wrapper over `jax.distributed.initialize`: pass
+    `coordinator_address` ("host:port"), `num_processes` and
+    `process_id` unless the cluster environment provides them. After
+    this, `jax.devices()` spans every process and `make_grid_mesh()`
+    builds a global ('y', 'x') mesh.
     """
     jax.distributed.initialize(**kwargs)

@@ -1,13 +1,13 @@
 """Multichip Krylov: the WHOLE BiCGStab solve inside one shard_map region.
 
-The round-2 gap: apply/assembly/Redi had shard-local Pallas hot paths,
-but any Krylov solve on a mesh had to fall back to GSPMD auto-partitioning
-of the jnp matvec. Here the full solver loop runs shard-locally:
+Without this module a Krylov solve on a mesh relies on GSPMD
+auto-partitioning of the jnp matvec. Here the full solver loop runs
+shard-locally:
 
   * matvec  — 1-cell ppermute halo exchange (periodic x, tripolar
-    mirror-shard fold; parallel/halo.py) + the shard-local fused Pallas
-    stencil kernel (parallel/halo_pallas.py), so every iteration's
-    communication is four neighbor collective-permutes riding ICI;
+    mirror-shard fold; parallel/halo.py) + the shard-local jnp stencil
+    that XLA fuses, so every iteration's communication is four neighbor
+    collective-permutes (NCCL on GPUs);
   * dot products / norms — local vdot + `lax.psum` over ('y', 'x')
     (one scalar all-reduce each, latency-bound, negligible);
   * preconditioner — the vertical-line (tridiagonal) solve is k-local
@@ -33,12 +33,8 @@ from jax.sharding import Mesh, PartitionSpec as P
 
 from ..grid.topology import GridTopology
 from ..ops.coeffs import StencilCoeffs
-from .halo import _halo_exchange
-from .halo_pallas import (
-    _boundary_patch,
-    _default_interpret,
-    _local_pallas_apply,
-)
+from ..ops.pallas_util import kernel_route
+from .halo import _halo_exchange, _local_stencil, _local_stencil_overlapped
 
 
 def _pdot(a, b):
@@ -51,7 +47,7 @@ def _pdot(a, b):
     static_argnames=("topology", "mesh", "maxiter", "transpose",
                      "preconditioner", "interpret", "overlap"),
 )
-def solve_shifted_halo_pallas(
+def solve_shifted_halo(
     coeffs: StencilCoeffs,
     b,
     topology: GridTopology,
@@ -62,21 +58,23 @@ def solve_shifted_halo_pallas(
     maxiter: int = 2000,
     transpose: bool = False,
     preconditioner: str = "tridiag",
-    interpret: bool | None = None,
+    interpret: bool = False,
     overlap: bool = True,
 ):
     """Solve (shift*I + D_extra + T) x = b on a device mesh, matrix-free,
-    with the halo-Pallas matvec inside the Krylov loop (T' when
-    `transpose`). Same contract as models.solvers.solve_shifted: returns
+    with the halo-exchange matvec inside the Krylov loop (T' when
+    `transpose`). The Thomas preconditioner runs shard-locally on
+    `kernel_route(interpret)`. Same contract as
+    models.solvers.solve_shifted: returns
     (x, relative_residual), residual recomputed from scratch; callers
     check it against their tolerance.
 
     `overlap=True` (default) removes the halo latency from the matvec's
-    critical path: the Pallas kernel runs on ZERO halos (no data
-    dependency on the ppermutes, so XLA schedules the collective-permutes
-    concurrently with the kernel), and the four shard-boundary rows/
-    columns are patched when the permutes land — the same interior/
-    boundary split as `euler_propagate_halo_pallas`. The result differs
+    critical path: the bulk stencil runs on zero halos (no data
+    dependency on the ppermutes, so XLA can schedule the
+    collective-permutes concurrently with it), and the four shard-boundary
+    rows/columns are patched when the permutes land — the same interior/
+    boundary split as `euler_propagate_halo`. The result differs
     from the serialized matvec only by edge summation order (~1 ulp),
     which a Krylov iteration is insensitive to.
     """
@@ -86,8 +84,7 @@ def solve_shifted_halo_pallas(
     )
     from ..ops.apply import transpose_coeffs
 
-    if interpret is None:
-        interpret = _default_interpret()
+    route = kernel_route(interpret)
 
     b = jnp.asarray(b)
     shift = jnp.asarray(shift, b.dtype)
@@ -96,7 +93,7 @@ def solve_shifted_halo_pallas(
         else jnp.asarray(extra_diag, b.dtype)
     )
 
-    # The forward kernel runs the adjoint problem on the stencil form of
+    # The forward stencil runs the adjoint problem on the stencil form of
     # T'; its top/bottom legs ARE the transposed vertical couplings, so
     # the tridiagonal preconditioner also builds from apply_coeffs
     # (matching models.solvers.solve_shifted's swapped-legs construction).
@@ -117,38 +114,17 @@ def solve_shifted_halo_pallas(
         check_vma=False,  # pallas_call outputs carry no VMA metadata
     )
     def _solve(c_l, b_l, extra_l, shift_l):
+        stencil = _local_stencil_overlapped if overlap else _local_stencil
+
         def a_op(x):
             halos = _halo_exchange(x, topology, mesh)
-            if overlap:
-                zeros = tuple(jnp.zeros_like(h) for h in halos)
-                bulk = _local_pallas_apply(c_l, x, zeros, None, interpret)
-                tx = _boundary_patch(
-                    c_l, bulk, halos, jnp.asarray(1.0, bulk.dtype)
-                )
-            else:
-                tx = _local_pallas_apply(c_l, x, halos, None, interpret)
-            return shift_l * x + extra_l * x + tx
+            return shift_l * x + extra_l * x + stencil(c_l, x, halos)
 
         shifted_diag = shift_l + extra_l + c_l.diag
         if preconditioner == "tridiag":
-            # Shard-local fused Pallas Thomas kernel (k is never
-            # sharded, so each shard solves its own full columns):
-            # 5 HBM streams per apply vs the jnp scans' ~9. Running a
-            # multi-program Pallas kernel inside this while_loop is
-            # deliberate and TESTED: unlike the j-blocked stencil
-            # kernel (see stencil_pallas.blocked_unstable_in_while),
-            # the Thomas kernel survived a 4000-iteration while_loop at
-            # the full 0.25-degree size on v5e (round-4 experiment;
-            # 7.3 ms/iter, no worker fault).
-            from ..ops.tridiag_pallas import tridiag_solve_pallas
-
-            gd = jnp.where(shifted_diag != 0, shifted_diag,
-                           jnp.ones((), shifted_diag.dtype))
-
-            def M(v):
-                return tridiag_solve_pallas(
-                    c_l.bottom, gd, c_l.top, v, interpret=interpret
-                )
+            # Shard-local Thomas solve: k is never sharded, so each
+            # shard solves its own full columns.
+            M = _tridiag_preconditioner(c_l, shifted_diag, route)
         elif preconditioner == "jacobi":
             M = _jacobi_preconditioner(shifted_diag)
         else:

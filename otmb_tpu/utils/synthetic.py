@@ -110,8 +110,7 @@ def synthetic_device_case(
 
     Returns (gridmetrics, wet3d, umo, vmo, mlotst) with every 3D field
     created by jnp ops on the default device — only O(ny*nx) host data is
-    transferred. Essential when the host<->device link is slow (e.g. a
-    relayed TPU) or the grid is 0.25-degree scale (10^8 cells).
+    transferred, which matters at the 0.25-degree scale (10^8 cells).
 
     The geometry matches `synthetic_dataset` + `makegridmetrics` up to the
     field-generation RNG (harmonic phases come from numpy, so the *flow*

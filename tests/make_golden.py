@@ -67,7 +67,7 @@ def main():
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                         "golden_tile.npz")
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    np.savez_compressed(path, **out)
+    np.savez(path, **out)
     print(f"wrote {path}: " + ", ".join(
         f"{k}[{v.shape[0]}]" for k, v in sorted(out.items())
     ))

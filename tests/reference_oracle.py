@@ -2,7 +2,7 @@
 
 This module intentionally mirrors the *loop-level* semantics of
 /root/reference/src (velocities.jl, matrixbuilding.jl) cell by cell, as a
-slow but unambiguous specification to validate the vectorized TPU-native
+slow but unambiguous specification to validate the vectorized
 implementation against. It is test-only code.
 
 Conventions: canonical layout (nz, ny, nx), 0-based; a "cell" is the tuple

@@ -249,7 +249,7 @@ def test_coarse_fine_cross_check(dataset, gridmetrics, indices):
     np.testing.assert_allclose(gv_c[wet], gv_fine, rtol=1e-8)
 
     # full T, 2x2x1: volume-mean band vs the MATRIX-FREE fine solve
-    # (the TPU path), toy-grid coarsening error documented above
+    # (the accelerator path), toy-grid coarsening error documented above
     g_c, _, _ = ideal_age_coarsened(
         ops.T, idx, gm.topology, gm.v3d, di=2, dj=2, dk=1
     )

@@ -59,7 +59,7 @@ def test_monotonicity_and_compressibility():
 
 
 def test_f32_consistency_and_jit():
-    """The f32 evaluation (the TPU path) stays within f32 roundoff of
+    """The f32 evaluation (the accelerator path) stays within f32 roundoff of
     f64, and the function jits cleanly."""
     rng = np.random.default_rng(3)
     sa = rng.uniform(30, 38, (4, 5)).astype(np.float64)

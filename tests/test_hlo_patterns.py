@@ -3,7 +3,7 @@ must lower to neighbor collective-permutes only.
 
 The halo layer (parallel/halo.py) is written so every inter-shard
 transfer is a 1-cell edge exchange via lax.ppermute — which XLA compiles
-to `collective-permute` ops that ride the ICI neighbor links. A GSPMD or
+to `collective-permute` ops between neighbor devices. A GSPMD or
 shard_map regression could silently replace those with `all-gather` /
 `all-reduce` (full-mesh traffic, O(devices) more bytes); this test pins
 the compiled-HLO communication pattern so that cannot happen unnoticed.
@@ -111,141 +111,48 @@ def test_propagate_hlo_is_permute_only(mesh, case, overlap):
     _assert_permute_only(hlo, f"euler_propagate_halo(overlap={overlap})")
 
 
-# ---- shard-local Pallas paths (interpret mode lowers to plain HLO, so the
-# shard_map communication pattern is visible to the same pins) -------------
-
-
-def test_pallas_apply_hlo_is_permute_only(mesh, case):
-    from otmb_tpu.parallel.halo_pallas import apply_stencil_halo_pallas
-
-    topo, coeffs_sh, chi_sh = case
-    hlo = _compiled_hlo(
-        lambda c, x: apply_stencil_halo_pallas(c, x, topo, mesh,
-                                               interpret=True),
-        coeffs_sh, chi_sh,
-    )
-    _assert_permute_only(hlo, "apply_stencil_halo_pallas")
-
-
-@pytest.mark.parametrize("overlap", [False, True])
-def test_pallas_propagate_hlo_is_permute_only(mesh, case, overlap):
-    from otmb_tpu.parallel.halo_pallas import euler_propagate_halo_pallas
-
-    topo, coeffs_sh, chi_sh = case
-    hlo = _compiled_hlo(
-        lambda c, x: euler_propagate_halo_pallas(
-            c, x, 300.0, 10, topo, mesh, interpret=True, overlap=overlap
-        ),
-        coeffs_sh, chi_sh,
-    )
-    _assert_permute_only(
-        hlo, f"euler_propagate_halo_pallas(overlap={overlap})"
-    )
-
-
-def test_pallas_assembly_hlo_is_permute_only(mesh, case):
-    """Sharded fused assembly, incl. the GSPMD-sharded kpack/residents
-    prep (_prep_kpack_residents) — the whole lowered program must move
-    only neighbor boundary lines."""
-    from otmb_tpu.grid.geometry import makegridmetrics
-    from otmb_tpu.parallel.assemble_halo import assemble_T_halo_pallas
-    from otmb_tpu.parallel.mesh import shard_pytree, sharding_for
-    from otmb_tpu.utils.synthetic import synthetic_dataset
-
-    topo, _, _ = case
-    ds = synthetic_dataset(nx=16, ny=8, nz=6, topology=topo.kind, seed=3)
-    gm = makegridmetrics(
-        areacello=ds.areacello, volcello=ds.volcello, lon=ds.lon, lat=ds.lat,
-        lev=ds.lev, lon_vertices=ds.lon_vertices, lat_vertices=ds.lat_vertices,
-    )
-    gm_sh = shard_pytree(mesh, gm)
-    args_sh = [
-        jax.device_put(np.nan_to_num(np.asarray(a)),
-                       sharding_for(mesh, np.asarray(a)))
-        for a in (ds.umo, ds.vmo, ds.mlotst)
-    ]
-    hlo = _compiled_hlo(
-        lambda u, v, m: assemble_T_halo_pallas(u, v, m, gm_sh, mesh,
-                                               interpret=True),
-        *args_sh,
-    )
-    _assert_permute_only(hlo, "assemble_T_halo_pallas")
-
-
-def test_pallas_redi_hlo_is_permute_only(mesh, case):
-    from otmb_tpu.grid.geometry import makegridmetrics
-    from otmb_tpu.grid.indices import makeindices
-    from otmb_tpu.models.redi import build_redi_operator
-    from otmb_tpu.parallel.mesh import shard_pytree, sharding_for
-    from otmb_tpu.parallel.redi_halo import redi_apply_halo_pallas
-    from otmb_tpu.utils.synthetic import synthetic_dataset
-
-    topo, _, chi_sh = case
-    ds = synthetic_dataset(nx=16, ny=8, nz=6, topology=topo.kind, seed=3)
-    gm = makegridmetrics(
-        areacello=ds.areacello, volcello=ds.volcello, lon=ds.lon, lat=ds.lat,
-        lev=ds.lev, lon_vertices=ds.lon_vertices, lat_vertices=ds.lat_vertices,
-    )
-    idx = makeindices(gm.v3d)
-    wet = np.asarray(idx.wet3d)
-    z = np.asarray(gm.z3d)
-    rho = np.where(wet, 1025.0 + 0.02 * z, np.nan)
-    op = build_redi_operator(rho, gm, idx.wet3d)
-    op_sh = shard_pytree(mesh, op)
-    hlo = _compiled_hlo(
-        lambda o, x: redi_apply_halo_pallas(o, x, mesh, interpret=True),
-        op_sh, chi_sh,
-    )
-    _assert_permute_only(hlo, "redi_apply_halo_pallas")
-
-
 @pytest.mark.parametrize("overlap", [False, True])
 def test_sharded_krylov_hlo_is_permute_only(mesh, case, overlap):
     """The whole sharded BiCGStab program: halo ppermutes for the matvec;
     all-reduces appear ONLY as scalar dot products (psum of one number) —
     never over field shapes. Pinned for both the serialized and the
-    comm/compute-overlapped matvec."""
-    from otmb_tpu.parallel.solve_halo import solve_shifted_halo_pallas
+    comm/compute-overlapped matvec, with the Thomas kernel interpreted."""
+    from otmb_tpu.parallel.solve_halo import solve_shifted_halo
 
     topo, coeffs_sh, chi_sh = case
     hlo = _compiled_hlo(
-        lambda c, b: solve_shifted_halo_pallas(
+        lambda c, b: solve_shifted_halo(
             c, b, topo, mesh, shift=1e-4, tol=1e-8, maxiter=50,
             interpret=True, overlap=overlap,
         )[0],
         coeffs_sh, chi_sh,
     )
-    _assert_permute_only(hlo, f"solve_shifted_halo_pallas(overlap={overlap})",
+    _assert_permute_only(hlo, f"solve_shifted_halo(overlap={overlap})",
                          allow_scalar_allreduce=True)
 
 
-def test_pallas_multi_hlo_is_permute_only(mesh, case):
-    """Batched shard-local path: the tracer-batch axis rides inside the
-    SAME four neighbor ppermutes (payloads grow a leading B axis, no
-    extra collectives)."""
-    from otmb_tpu.parallel.halo_pallas import (
-        euler_propagate_halo_pallas_multi,
-    )
+@pytest.mark.parametrize("overlap", [False, True])
+def test_sharded_jacobi_krylov_hlo_is_permute_only(mesh, case, overlap):
+    from otmb_tpu.parallel.solve_halo import solve_shifted_halo
 
     topo, coeffs_sh, chi_sh = case
-    chis_sh = jax.device_put(
-        np.stack([np.asarray(chi_sh)] * 3),
-        jax.NamedSharding(mesh, jax.sharding.PartitionSpec(
-            None, None, "y", "x")),
-    )
     hlo = _compiled_hlo(
-        lambda c, x: euler_propagate_halo_pallas_multi(
-            c, x, 300.0, 5, topo, mesh, interpret=True
-        ),
-        coeffs_sh, chis_sh,
+        lambda c, b: solve_shifted_halo(
+            c, b, topo, mesh, shift=1e-4, tol=1e-8, maxiter=50,
+            preconditioner="jacobi", overlap=overlap,
+        )[0],
+        coeffs_sh, chi_sh,
     )
-    _assert_permute_only(hlo, "euler_propagate_halo_pallas_multi")
+    _assert_permute_only(hlo, f"jacobi solve (overlap={overlap})",
+                         allow_scalar_allreduce=True)
 
 
+@pytest.mark.parametrize("preconditioner", ["tridiag", "jacobi"])
 @pytest.mark.parametrize("algorithm", ["bicgstab", "bicgstab2"])
-def test_sharded_chunked_krylov_hlo_is_permute_only(mesh, case, algorithm):
+def test_sharded_chunked_krylov_hlo_is_permute_only(mesh, case, algorithm,
+                                                    preconditioner):
     """The sharded fori-chunked Krylov engine's per-chunk program (the
-    production mesh path at shard-blocked sizes): halo ppermutes for the
+    mesh path for large shards): halo ppermutes for the
     matvec, all-reduces only as scalar dot products."""
     import jax.numpy as jnp
     import otmb_tpu.parallel.solve_halo_chunked as HC
@@ -260,9 +167,11 @@ def test_sharded_chunked_krylov_hlo_is_permute_only(mesh, case, algorithm):
                  jnp.ones((), b.dtype), jnp.zeros((), b.dtype),
                  jnp.ones((), b.dtype))
     lowered = HC._hc_run_chunk.lower(
-        coeffs_sh, state, 10, topo, mesh, "tridiag", True, True, algorithm
+        coeffs_sh, state, 10, topo, mesh, preconditioner, "interpret", True,
+        algorithm
     )
     hlo = lowered.compile().as_text()
     _assert_permute_only(
-        hlo, f"_hc_run_chunk({algorithm})", allow_scalar_allreduce=True,
+        hlo, f"_hc_run_chunk({algorithm}, {preconditioner})",
+        allow_scalar_allreduce=True,
     )

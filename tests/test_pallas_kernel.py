@@ -1,13 +1,21 @@
-"""Pallas stencil kernel vs the jnp reference apply (interpreter mode on CPU)."""
+"""The single-tracer stencil: the batched kernel at B = 1 (Pallas
+interpreter on CPU) and XLA's plain path (`apply_stencil`,
+`explicit_euler_propagate`) against the wet-cell sparse matrix."""
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 
+from otmb_tpu.models.solvers import explicit_euler_propagate
 from otmb_tpu.models.transport import transportmatrix
 from otmb_tpu.ops.apply import apply_stencil
 from otmb_tpu.ops.fluxes import facefluxesfrommasstransport
-from otmb_tpu.ops.stencil_pallas import apply_stencil_pallas, euler_step_pallas
+from otmb_tpu.ops.stencil_pallas import (
+    apply_stencil_pallas_multi,
+    euler_step_pallas_multi,
+)
+from otmb_tpu.utils.sparse_export import coeffs_to_scipy
 
 
 @pytest.fixture(scope="module")
@@ -20,32 +28,36 @@ def ops(dataset, gridmetrics, indices):
     )
 
 
+def _kernel_apply(coeffs, chi, topo):
+    return np.asarray(
+        apply_stencil_pallas_multi(coeffs, jnp.asarray(chi)[None], topo,
+                                   "interpret")[0])
+
+
+def _cast(tree, dtype):
+    return jax.tree_util.tree_map(lambda x: x.astype(dtype), tree)
+
+
 def test_pallas_apply_matches_reference(ops, gridmetrics, indices):
     wet = np.asarray(indices.wet3d)
     rng = np.random.default_rng(0)
     chi = np.where(wet, rng.standard_normal(gridmetrics.shape), 0.0)
 
     ref = np.asarray(apply_stencil(ops.T, chi, gridmetrics.topology))
-    out = np.asarray(
-        apply_stencil_pallas(ops.T, chi, gridmetrics.topology, interpret=True)
-    )
+    out = _kernel_apply(ops.T, chi, gridmetrics.topology)
     np.testing.assert_allclose(out, ref, rtol=1e-12, atol=1e-14)
 
 
 def test_pallas_apply_f32(ops, gridmetrics, indices):
-    """The TPU hot path runs float32; kernel must agree with the f32 jnp
-    apply at f32 precision."""
-    import jax
-
+    """The card's hot path runs float32; the kernel must agree with the
+    f32 jnp apply at f32 precision."""
     wet = np.asarray(indices.wet3d)
     rng = np.random.default_rng(1)
     chi = np.where(wet, rng.standard_normal(gridmetrics.shape), 0.0).astype(np.float32)
-    coeffs32 = jax.tree_util.tree_map(lambda x: x.astype(np.float32), ops.T)
+    coeffs32 = _cast(ops.T, np.float32)
 
     ref = np.asarray(apply_stencil(coeffs32, chi, gridmetrics.topology))
-    out = np.asarray(
-        apply_stencil_pallas(coeffs32, chi, gridmetrics.topology, interpret=True)
-    )
+    out = _kernel_apply(coeffs32, chi, gridmetrics.topology)
     np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-6)
 
 
@@ -56,119 +68,97 @@ def test_pallas_euler_step(ops, gridmetrics, indices):
     dt = 100.0
 
     ref = chi - dt * np.asarray(apply_stencil(ops.T, chi, gridmetrics.topology))
-    out = np.asarray(
-        euler_step_pallas(ops.T, chi, dt, gridmetrics.topology, interpret=True)
-    )
+    out = np.asarray(euler_step_pallas_multi(
+        ops.T, chi[None], dt, gridmetrics.topology, "interpret")[0])
     np.testing.assert_allclose(out, ref, rtol=1e-12, atol=1e-12)
 
 
-@pytest.mark.parametrize("variant", ["simple", "carry"])
-def test_pallas_variants_match(ops, gridmetrics, indices, variant):
+@pytest.mark.parametrize("nb", [3, 8])
+def test_pallas_variants_match(ops, gridmetrics, indices, nb):
+    """Batches of 3 and 8, f64: apply and fused Euler step."""
+    topo = gridmetrics.topology
     wet = np.asarray(indices.wet3d)
     rng = np.random.default_rng(3)
-    chi = np.where(wet, rng.standard_normal(gridmetrics.shape), 0.0)
-    ref = np.asarray(apply_stencil(ops.T, chi, gridmetrics.topology))
-    out = np.asarray(
-        apply_stencil_pallas(
-            ops.T, chi, gridmetrics.topology, interpret=True, variant=variant
-        )
-    )
+    chis = np.where(wet[None], rng.standard_normal((nb,) + gridmetrics.shape),
+                    0.0)
+    ref = np.asarray(apply_stencil(ops.T, chis, topo))
+    out = np.asarray(apply_stencil_pallas_multi(ops.T, chis, topo,
+                                                "interpret"))
     np.testing.assert_allclose(out, ref, rtol=1e-12, atol=1e-13)
-    out2 = np.asarray(
-        euler_step_pallas(
-            ops.T, chi, 50.0, gridmetrics.topology, interpret=True, variant=variant
-        )
-    )
-    np.testing.assert_allclose(out2, chi - 50.0 * ref, rtol=1e-12, atol=1e-11)
+    out2 = np.asarray(euler_step_pallas_multi(ops.T, chis, 50.0, topo,
+                                              "interpret"))
+    np.testing.assert_allclose(out2, chis - 50.0 * ref, rtol=1e-12, atol=1e-11)
 
 
-@pytest.mark.parametrize("variant", ["simple", "carry"])
-def test_pallas_bf16_coefficients(ops, gridmetrics, indices, variant):
-    """Mixed precision: bf16 coefficient streams, f32 chi/accumulation."""
-    import jax
-    import jax.numpy as jnp
-
+@pytest.mark.parametrize("nb", [1, 3])
+def test_pallas_bf16_coefficients(ops, gridmetrics, indices, nb):
+    """Mixed precision: bf16 coefficient fields, f32 chi/accumulation."""
+    topo = gridmetrics.topology
     wet = np.asarray(indices.wet3d)
     rng = np.random.default_rng(4)
-    chi = np.where(wet, rng.standard_normal(gridmetrics.shape), 0.0).astype(np.float32)
-    cast = lambda t: jax.tree_util.tree_map(lambda x: x.astype(jnp.bfloat16), t)
-    coeffs_bf16 = cast(ops.T)
+    chis = np.where(wet[None], rng.standard_normal((nb,) + gridmetrics.shape),
+                    0.0).astype(np.float32)
+    coeffs_bf16 = _cast(ops.T, jnp.bfloat16)
 
-    ref = np.asarray(apply_stencil(ops.T, chi, gridmetrics.topology))
-    out = np.asarray(
-        apply_stencil_pallas(
-            coeffs_bf16, chi, gridmetrics.topology, interpret=True, variant=variant
-        )
-    )
+    ref = np.asarray(apply_stencil(ops.T, chis, topo))
+    out = np.asarray(apply_stencil_pallas_multi(coeffs_bf16, chis, topo,
+                                                "interpret"))
     assert out.dtype == np.float32
     # bf16 has ~3 significant decimal digits
     scale = np.abs(ref).max()
     np.testing.assert_allclose(out / scale, ref / scale, atol=2e-2)
 
 
-@pytest.mark.parametrize("by", [1, 2, 7])
-def test_pallas_blocked_variant(ops, gridmetrics, indices, by):
-    """j-blocked kernel (multi-block, incl. non-even halo rows) must match
-    the reference apply; ny=14 so by=7 gives 2 blocks, by=2 gives 7."""
-    if gridmetrics.topology.ny % by:
-        pytest.skip("by must divide ny")
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_xla_apply_matches_sparse_matrix(ops, gridmetrics, indices, dtype):
+    """The plain path that replaced the single-tracer kernels: y = T chi
+    against the assembled wet-cell matrix."""
+    topo = gridmetrics.topology
     wet = np.asarray(indices.wet3d)
     rng = np.random.default_rng(5)
     chi = np.where(wet, rng.standard_normal(gridmetrics.shape), 0.0)
-    ref = np.asarray(apply_stencil(ops.T, chi, gridmetrics.topology))
-    out = np.asarray(
-        apply_stencil_pallas(
-            ops.T, chi, gridmetrics.topology, interpret=True,
-            variant="blocked", by_static=by,
-        )
-    )
-    np.testing.assert_allclose(out, ref, rtol=1e-12, atol=1e-13)
-    out2 = np.asarray(
-        euler_step_pallas(
-            ops.T, chi, 50.0, gridmetrics.topology, interpret=True,
-            variant="blocked", by_static=by,
-        )
-    )
-    np.testing.assert_allclose(out2, chi - 50.0 * ref, rtol=1e-12, atol=1e-11)
+    mat = coeffs_to_scipy(ops.T, indices, topo)
+    ref = mat @ chi[wet]
+    out = np.asarray(apply_stencil(_cast(ops.T, dtype), chi.astype(dtype),
+                                   topo))
+    tol = 1e-12 if dtype == np.float64 else 2e-5
+    scale = np.abs(ref).max()
+    np.testing.assert_allclose(out[wet] / scale, ref / scale, atol=tol)
+    assert np.all(out[~wet] == 0)
 
 
-@pytest.mark.parametrize("by", [2, 7])
-def test_propagate_blocked_loop_matches_stepwise(ops, gridmetrics, indices, by):
-    """The loop-optimized blocked propagation (kernel-emitted halo-row
-    streams, single-use carry) is exactly equal to calling the blocked
-    Euler step nsteps times."""
-    from otmb_tpu.ops.stencil_pallas import euler_propagate_pallas
-
+@pytest.mark.parametrize("nsteps", [5, 7])
+def test_explicit_propagate_matches_sparse_steps(ops, gridmetrics, indices,
+                                                 nsteps):
+    """explicit_euler_propagate (one compiled scan) against nsteps sparse
+    matrix steps in f64."""
     topo = gridmetrics.topology
     wet = np.asarray(indices.wet3d)
     rng = np.random.default_rng(8)
     chi = np.where(wet, rng.standard_normal(gridmetrics.shape), 0.0)
-    dt, nsteps = 120.0, 7
-
-    ref = jnp.asarray(chi)
+    dt = 120.0
+    mat = coeffs_to_scipy(ops.T, indices, topo)
+    ref = chi[wet]
     for _ in range(nsteps):
-        ref = euler_step_pallas(ops.T, ref, dt, topo, interpret=True,
-                                variant="blocked", by_static=by)
-    out = euler_propagate_pallas(ops.T, chi, dt, nsteps, topo,
-                                 interpret=True, variant="blocked",
-                                 by_static=by)
-    np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
+        ref = ref - dt * (mat @ ref)
+    out = np.asarray(explicit_euler_propagate(ops.T, chi, dt, nsteps, topo))
+    np.testing.assert_allclose(out[wet], ref, rtol=1e-11, atol=1e-12)
 
 
-def test_propagate_auto_variant_matches_stepwise(ops, gridmetrics, indices):
-    """Auto variant (carry kernel at this grid size) through the public
-    propagation entry."""
-    from otmb_tpu.ops.stencil_pallas import euler_propagate_pallas
-
+@pytest.mark.parametrize("nb", [1, 3])
+def test_propagate_kernel_loop_matches_xla(ops, gridmetrics, indices, nb):
+    """A compiled loop of kernel steps equals XLA's propagation of the
+    same batch (f64, so they agree to rounding)."""
     topo = gridmetrics.topology
     wet = np.asarray(indices.wet3d)
     rng = np.random.default_rng(9)
-    chi = np.where(wet, rng.standard_normal(gridmetrics.shape), 0.0)
+    chis = np.where(wet[None], rng.standard_normal((nb,) + gridmetrics.shape),
+                    0.0)
     dt, nsteps = 120.0, 5
-
-    ref = jnp.asarray(chi)
-    for _ in range(nsteps):
-        ref = euler_step_pallas(ops.T, ref, dt, topo, interpret=True)
-    out = euler_propagate_pallas(ops.T, chi, dt, nsteps, topo,
-                                 interpret=True)
-    np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
+    out = jax.jit(lambda c: jax.lax.fori_loop(
+        0, nsteps,
+        lambda i, v: euler_step_pallas_multi(ops.T, v, dt, topo, "interpret"),
+        c))(chis)
+    ref = explicit_euler_propagate(ops.T, chis, dt, nsteps, topo)
+    np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
+                               rtol=1e-11, atol=1e-12)

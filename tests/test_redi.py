@@ -103,118 +103,102 @@ def test_isoneutral_suppression(rho, redi_op, gridmetrics, indices):
     assert norm(tend_aligned) < 0.8 * norm(tend_mis)
 
 
-def test_pallas_redi_matches_jnp(redi_op, gridmetrics, indices):
-    """The fused Pallas Redi kernel (interpret mode on CPU) reproduces the
-    jnp linear-coefficient apply to float reassociation accuracy."""
-    from otmb_tpu.models.redi_pallas import redi_apply_pallas
-
-    wet = np.asarray(indices.wet3d)
-    rng = np.random.default_rng(11)
-    chi = np.where(wet, 1.0 + rng.standard_normal(gridmetrics.shape), 0.0)
-
-    ref = np.asarray(redi_apply(redi_op, chi))
-    got = np.asarray(redi_apply_pallas(redi_op, chi, interpret=True))
-    scale = np.abs(ref).max()
-    np.testing.assert_allclose(got, ref, rtol=1e-12, atol=1e-12 * scale)
-
-
-def test_pallas_redi_conserves_and_kills_constants(redi_op, gridmetrics,
-                                                   indices):
-    """Physics invariants hold through the kernel path: volume-integrated
-    tendency is zero (conservation) and constants are in the null space."""
-    from otmb_tpu.models.redi_pallas import redi_apply_pallas
-
-    wet = np.asarray(indices.wet3d)
-    v = np.where(wet, np.asarray(gridmetrics.v3d), 0.0)
-    rng = np.random.default_rng(12)
-    chi = np.where(wet, 1.0 + 0.5 * rng.standard_normal(wet.shape), 0.0)
-
-    tend = np.asarray(redi_apply_pallas(redi_op, chi, interpret=True))
-    total = float(np.sum(tend * v))
-    scale = float(np.sum(np.abs(tend) * v)) or 1.0
-    assert abs(total) / scale < 1e-12
-
-    const = np.where(wet, 3.0, 0.0)
-    t0 = np.asarray(redi_apply_pallas(redi_op, const, interpret=True))
-    assert np.abs(t0[wet]).max() < 1e-15
-
-
-def test_pallas_redi_blocked_matches_jnp(redi_op, gridmetrics, indices):
-    """The j-blocked kernel (0.25-degree-scale path), forced via by_static
-    on the small test grid, reproduces the jnp apply — interior block
-    edges exercise the streamed chi/dcz/f_n halo rows."""
-    from otmb_tpu.models.redi_pallas import redi_apply_pallas
-
-    wet = np.asarray(indices.wet3d)
-    rng = np.random.default_rng(13)
-    chi = np.where(wet, 1.0 + rng.standard_normal(gridmetrics.shape), 0.0)
-
-    ref = np.asarray(redi_apply(redi_op, chi))
-    scale = np.abs(ref).max()
-    for by in (7, 2):  # ny == 14
-        got = np.asarray(
-            redi_apply_pallas(redi_op, chi, interpret=True, by_static=by)
-        )
-        np.testing.assert_allclose(got, ref, rtol=1e-12, atol=1e-12 * scale)
-
-
-def test_pallas_redi_multi_matches_single(redi_op, gridmetrics, indices):
-    """The batched multi-tracer Redi kernel reproduces the single-tracer
-    kernel per batch member (coefficient slabs broadcast across B)."""
-    from otmb_tpu.models.redi_pallas import (
-        redi_apply_pallas,
-        redi_apply_pallas_multi,
-    )
+def test_redi_batched_matches_single(redi_op, gridmetrics, indices):
+    """A batch of tracers through `redi_apply` under vmap reproduces each
+    member's own apply (the batched path that replaced the multi-tracer
+    kernel)."""
+    import jax
 
     wet = np.asarray(indices.wet3d)
     rng = np.random.default_rng(14)
-    B = 3
-    chis = np.where(
-        wet[None], 1.0 + rng.standard_normal((B,) + wet.shape), 0.0
-    )
-
-    got = np.asarray(redi_apply_pallas_multi(redi_op, chis, interpret=True))
+    chis = np.where(wet[None], 1.0 + rng.standard_normal((3,) + wet.shape),
+                    0.0)
+    got = np.asarray(jax.vmap(redi_apply, in_axes=(None, 0))(redi_op, chis))
     assert got.shape == chis.shape
-    for b in range(B):
-        ref = np.asarray(redi_apply_pallas(redi_op, chis[b], interpret=True))
+    for b in range(3):
+        ref = np.asarray(redi_apply(redi_op, chis[b]))
         scale = np.abs(ref).max()
-        np.testing.assert_allclose(
-            got[b], ref, rtol=1e-12, atol=1e-12 * scale
-        )
+        np.testing.assert_allclose(got[b], ref, rtol=1e-12,
+                                   atol=1e-12 * scale)
 
 
-def test_pallas_redi_multi_fallback_scan(redi_op, indices):
-    """When the batched working set exceeds VMEM the entry point scans the
-    single-tracer kernel — outputs must agree exactly with direct calls."""
-    from otmb_tpu.models import redi_pallas as rp
+def test_redi_conserves_and_kills_constants_f32(redi_op, gridmetrics,
+                                                indices):
+    """The invariants hold in the card's f32 arithmetic: the
+    volume-integrated tendency vanishes to f32 rounding and constants
+    stay in the null space."""
+    import dataclasses
 
+    from otmb_tpu.models.redi import _COEF_FIELDS
+
+    op32 = dataclasses.replace(
+        redi_op,
+        **{k: getattr(redi_op, k).astype(np.float32) for k in _COEF_FIELDS},
+    )
     wet = np.asarray(indices.wet3d)
-    rng = np.random.default_rng(15)
-    chis = np.where(wet[None], rng.standard_normal((2,) + wet.shape), 0.0)
+    v = np.where(wet, np.asarray(gridmetrics.v3d), 0.0)
+    rng = np.random.default_rng(12)
+    chi = np.where(wet, 1.0 + 0.5 * rng.standard_normal(wet.shape),
+                   0.0).astype(np.float32)
+    tend = np.asarray(redi_apply(op32, chi), np.float64)
+    assert tend.dtype == np.float64
+    total = float(np.sum(tend * v))
+    scale = float(np.sum(np.abs(tend) * v)) or 1.0
+    assert abs(total) / scale < 1e-5
 
-    orig = rp._redi_multi_vmem_ok
-    rp._redi_multi_vmem_ok = lambda *a: False
-    try:
-        got = np.asarray(rp.redi_apply_pallas_multi(redi_op, chis,
-                                                    interpret=True))
-    finally:
-        rp._redi_multi_vmem_ok = orig
-    for b in range(2):
-        ref = np.asarray(rp.redi_apply_pallas(redi_op, chis[b],
-                                              interpret=True))
-        np.testing.assert_array_equal(got[b], ref)
+    const = np.where(wet, 3.0, 0.0).astype(np.float32)
+    t0 = np.asarray(redi_apply(op32, const))
+    ref = np.asarray(redi_apply(redi_op, chi))
+    assert np.abs(t0[wet]).max() < 1e-5 * np.abs(ref).max()
 
 
-def test_pallas_redi_bf16_coefficients(redi_op, indices):
-    """bf16 coefficient streams through the fused kernel: the kernel
-    upcasts in-register, so its output matches the jnp apply of the
-    bf16-rounded operator (f32 math on identical coefficient values)."""
+@pytest.mark.parametrize("mesh_shape", [(2, 1), (1, 2)])
+def test_redi_sharded_matches_single(redi_op, gridmetrics, indices,
+                                     mesh_shape):
+    """`redi_apply` on mesh-sharded operator and tracer (XLA partitions
+    it; j split crosses the tripolar fold, i split the periodic wrap)
+    equals the single-device apply."""
+    import jax
+
+    from otmb_tpu.parallel.mesh import make_grid_mesh, shard_pytree
+
+    mesh = make_grid_mesh(jax.devices()[:2], mesh_shape=mesh_shape)
+    wet = np.asarray(indices.wet3d)
+    rng = np.random.default_rng(13)
+    chi = np.where(wet, 1.0 + rng.standard_normal(gridmetrics.shape), 0.0)
+    ref = np.asarray(redi_apply(redi_op, chi))
+    got = redi_apply(shard_pytree(mesh, redi_op), shard_pytree(mesh, chi))
+    assert len(got.sharding.device_set) == 2
+    scale = np.abs(ref).max()
+    np.testing.assert_allclose(np.asarray(got), ref, rtol=1e-12,
+                               atol=1e-12 * scale)
+
+
+def test_redi_linear_in_kappa(rho, gridmetrics, indices):
+    """The tendency scales with kappa_redi (the slopes, taper and masks do
+    not depend on it)."""
+    wet = np.asarray(indices.wet3d)
+    rng = np.random.default_rng(17)
+    chi = np.where(wet, rng.standard_normal(gridmetrics.shape), 0.0)
+    t1 = np.asarray(redi_apply(
+        build_redi_operator(rho, gridmetrics, indices.wet3d, kappa_redi=500.0),
+        chi))
+    t2 = np.asarray(redi_apply(
+        build_redi_operator(rho, gridmetrics, indices.wet3d,
+                            kappa_redi=1500.0), chi))
+    np.testing.assert_allclose(t2, 3.0 * t1, rtol=1e-10,
+                               atol=1e-12 * np.abs(t2).max())
+
+
+def test_redi_bf16_coefficients(redi_op, indices):
+    """bf16 coefficient fields: the output matches the apply of the
+    bf16-rounded operator in f32 (the coefficients are widened inside the
+    fused arithmetic), and the rounding stays at the bf16 level."""
     import dataclasses
 
     import jax.numpy as jnp
 
     from otmb_tpu.models.redi import _COEF_FIELDS, redi_operator_to_bf16
-    from otmb_tpu.models.redi_pallas import redi_apply_pallas
 
     wet = np.asarray(indices.wet3d)
     rng = np.random.default_rng(16)
@@ -225,7 +209,6 @@ def test_pallas_redi_bf16_coefficients(redi_op, indices):
     op_bf16 = redi_operator_to_bf16(redi_op)
     assert op_bf16.ae.dtype == jnp.bfloat16
 
-    # round-tripped f32 operator == the values the kernel sees in-register
     op_rt = dataclasses.replace(
         redi_op,
         **{
@@ -234,9 +217,8 @@ def test_pallas_redi_bf16_coefficients(redi_op, indices):
         },
     )
     ref = np.asarray(redi_apply(op_rt, chi)).astype(np.float32)
-    got = np.asarray(redi_apply_pallas(op_bf16, chi, interpret=True))
+    got = np.asarray(redi_apply(op_bf16, chi))
     scale = np.abs(ref).max()
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5 * scale)
-    # and the bf16 rounding itself stays at the bf16 relative level
     exact = np.asarray(redi_apply(redi_op, chi))
     assert np.abs(got - exact).max() <= 3e-2 * np.abs(exact).max()

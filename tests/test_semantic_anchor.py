@@ -209,13 +209,16 @@ def test_anchor_rows_xla_pipeline(anchor_case):
         assert (a[:, 1, 1] == 0.0).all(), f"land row leak in {leg}"
 
 
-def test_anchor_rows_fused_pallas_kernel(anchor_case):
-    """The fused assembly kernel reproduces the same hand-derived
-    constants (interpret mode on CPU)."""
-    from otmb_tpu.ops.assemble_pallas import assemble_T_pallas
+def test_anchor_rows_jit_assembly(anchor_case):
+    """The jittable assembly (`assemble_transport`, the path the card
+    runs) reproduces the same hand-derived constants."""
+    import jax
+
+    from otmb_tpu.models.transport import assemble_transport
 
     gm, idx, umo, vmo, ml = anchor_case
-    coeffs = assemble_T_pallas(umo, vmo, ml, gm, interpret=True)
+    coeffs = jax.jit(lambda u, v, m, g, w: assemble_transport(
+        u, v, m, g, w).T)(umo, vmo, ml, gm, idx.wet3d)
     _check_rows(coeffs)
 
 

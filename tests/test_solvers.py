@@ -352,7 +352,7 @@ def test_water_mass_fractions_partition(ops, gridmetrics, indices):
 def test_solve_shifted_chunked_matches_whole_solve(ops, gridmetrics,
                                                    indices, transpose):
     """The host-chunked Krylov (fori_loop chunks + host convergence
-    checks — the blocked-kernel-safe TPU path) solves to the same
+    checks — the large-grid engine) solves to the same
     tolerance and solution as the single-jit solve."""
     from otmb_tpu.models.solvers import solve_shifted, solve_shifted_chunked
 
@@ -392,8 +392,8 @@ def test_solve_shifted_chunked_stagnation_stop(ops, gridmetrics, indices):
     """When the Krylov recurrence stops making progress the chunked
     solver detects it (a 3-chunk window whose CUMULATIVE norm
     improvement is under 2%) and stops with a warning instead of
-    burning to maxiter — on the real TPU a floored 0.25-degree solve
-    would otherwise waste ~60 s of iterations. Trigger: a skew-dominant
+    burning to maxiter — a floored 0.25-degree solve would otherwise
+    waste its whole iteration budget. Trigger: a skew-dominant
     operator (purely imaginary eigenvalue pairs), the classic BiCGStab
     staller (omega breakdown)."""
     from otmb_tpu.models.solvers import solve_shifted_chunked
@@ -452,11 +452,11 @@ def test_ir_defect_promotes_in_jit(ops, gridmetrics, indices):
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
 def test_tridiag_pallas_matches_jnp_scan(ops, gridmetrics, indices, dtype):
-    """The fused Pallas Thomas kernel (both sweeps in VMEM) reproduces
-    the jnp scan preconditioner on the real operator's vertical part,
-    including land columns (guarded unit diagonal)."""
+    """The Thomas kernel (both sweeps in one program, interpreted here)
+    reproduces the jnp scan preconditioner on the real operator's
+    vertical part, including land columns (guarded unit diagonal)."""
     from otmb_tpu.models.solvers import _tridiag_preconditioner
-    from otmb_tpu.ops.tridiag_pallas import tridiag_solve_pallas
+    from otmb_tpu.ops.tridiag_pallas import tridiag_solve
 
     wet = np.asarray(indices.wet3d)
     c = jax.tree_util.tree_map(lambda a: jnp.asarray(a, dtype), ops.T)
@@ -466,8 +466,7 @@ def test_tridiag_pallas_matches_jnp_scan(ops, gridmetrics, indices, dtype):
 
     ref = _tridiag_preconditioner(c, shifted)(jnp.asarray(b))
     guarded = jnp.where(shifted != 0, shifted, jnp.ones((), dtype))
-    out = tridiag_solve_pallas(c.bottom, guarded, c.top, b,
-                               interpret=True)
+    out = tridiag_solve(c.bottom, guarded, c.top, b, "interpret")
     tol = 1e-12 if dtype == np.float64 else 1e-5
     np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
                                rtol=tol, atol=tol)
@@ -476,7 +475,7 @@ def test_tridiag_pallas_matches_jnp_scan(ops, gridmetrics, indices, dtype):
 def test_tridiag_pallas_solves_the_system(ops, gridmetrics, indices):
     """Independent correctness: x from the kernel satisfies the
     per-column tridiagonal system (not just parity with the scan)."""
-    from otmb_tpu.ops.tridiag_pallas import tridiag_solve_pallas
+    from otmb_tpu.ops.tridiag_pallas import tridiag_solve
 
     wet = np.asarray(indices.wet3d)
     nz = wet.shape[0]
@@ -486,8 +485,7 @@ def test_tridiag_pallas_solves_the_system(ops, gridmetrics, indices):
     rng = np.random.default_rng(43)
     b = np.where(wet, rng.standard_normal(wet.shape), 0.0)
 
-    x = np.asarray(tridiag_solve_pallas(
-        c.bottom, guarded, c.top, b, interpret=True))
+    x = np.asarray(tridiag_solve(c.bottom, guarded, c.top, b, "interpret"))
     lower = np.asarray(c.bottom)
     upper = np.asarray(c.top)
     xp = np.concatenate([np.zeros_like(x[:1]), x[:-1]], axis=0)  # x[k-1]
@@ -499,9 +497,8 @@ def test_tridiag_pallas_solves_the_system(ops, gridmetrics, indices):
 @pytest.mark.parametrize("transpose", [False, True])
 def test_chunked_multi_matches_per_rhs(ops, gridmetrics, indices, transpose):
     """The host-chunked BATCHED Krylov (fori_loop chunks of the batched
-    Pallas matvec + vmapped Pallas Thomas preconditioner — the
-    0.25-degree path of water_mass_fractions) matches per-RHS chunked
-    solves."""
+    matvec + batched Thomas preconditioner — the 0.25-degree path of
+    water_mass_fractions) matches per-RHS chunked solves."""
     from otmb_tpu.models.solvers import (
         solve_shifted_chunked,
         solve_shifted_chunked_multi,
@@ -533,18 +530,14 @@ def test_chunked_multi_matches_per_rhs(ops, gridmetrics, indices, transpose):
         )
 
 
-def test_chunked_multi_blocked_variant(ops, gridmetrics, indices, monkeypatch):
-    """Same parity with the batched matvec FORCED onto the j-blocked
-    multi kernel (the actual kernel used at 0.25-degree scale), by
-    shrinking the VMEM predicate — interpret mode."""
-    from otmb_tpu.ops import stencil_pallas
+def test_chunked_multi_interpreted_kernels(ops, gridmetrics, indices):
+    """Same parity with the batched stencil and Thomas kernels running in
+    the Pallas interpreter (the kernels the 0.25-degree engine runs on
+    the GPU) against per-RHS solves on the plain path."""
     from otmb_tpu.models.solvers import (
         solve_shifted_chunked,
         solve_shifted_chunked_multi,
     )
-
-    monkeypatch.setattr(stencil_pallas, "_multi_vmem_ok",
-                        lambda *a, **k: False)
 
     topo = gridmetrics.topology
     wet = np.asarray(indices.wet3d)
@@ -556,7 +549,7 @@ def test_chunked_multi_blocked_variant(ops, gridmetrics, indices, monkeypatch):
     ]).astype(np.float64)
 
     xs, res = solve_shifted_chunked_multi(
-        ops.T, bs, topo, shift=1e-4, tol=1e-10, chunk=10,
+        ops.T, bs, topo, shift=1e-4, tol=1e-10, chunk=10, interpret=True,
     )
     assert float(np.max(np.asarray(res))) < 1e-8
     for b in range(B):
@@ -570,15 +563,13 @@ def test_chunked_multi_blocked_variant(ops, gridmetrics, indices, monkeypatch):
 
 def test_water_mass_fractions_chunked_route(ops, gridmetrics, indices,
                                             monkeypatch):
-    """water_mass_fractions at blocked-kernel grid sizes routes to the
-    chunked batched Krylov and still returns a surface-partition family
-    whose fractions sum to ~1 in the ventilated interior."""
+    """water_mass_fractions on large grids routes to the chunked batched
+    Krylov and still returns a surface-partition family whose fractions
+    sum to ~1 in the ventilated interior."""
     from otmb_tpu.models import solvers as solvers_mod
-    from otmb_tpu.ops import stencil_pallas
 
-    # Pretend this grid size is blocked on a real TPU.
-    monkeypatch.setattr(stencil_pallas, "blocked_unstable_in_while",
-                        lambda *a, **k: True)
+    # Treat this grid as large (see CHUNKED_MIN_COLUMNS).
+    monkeypatch.setattr(solvers_mod, "CHUNKED_MIN_COLUMNS", 1)
     called = {}
     orig = solvers_mod.solve_shifted_chunked_multi
 
@@ -708,9 +699,9 @@ def test_chunked_best_iterate_on_divergence(ops, gridmetrics, indices):
 
 def test_ir_survives_diverging_inner_solve(ops, gridmetrics, indices,
                                            monkeypatch):
-    """A catastrophically-diverged inner Krylov pass (observed once on
-    TPU at 0.25 degree: the correction blew the outer residual up to
-    ~1e3) must not poison the refinement: the outer loop reverts to its
+    """A catastrophically-diverged inner Krylov pass (observed once at
+    0.25 degree: the correction blew the outer residual up to ~1e3)
+    must not poison the refinement: the outer loop reverts to its
     best iterate and still converges to tol."""
     from otmb_tpu.models import solvers as S
 
@@ -867,11 +858,10 @@ def test_chunked_multi_bicgstab2_skew(ops, gridmetrics, indices):
 
 
 def test_ir_chunked_inner_path(ops, gridmetrics, indices, monkeypatch):
-    """CI coverage of the exact production 0.25-degree refinement path:
-    solve_shifted_ir routed through the host-chunked inner engine (the
-    default BiCGStab(2) cycles), which `_use_chunked` only selects on a
-    real TPU at blocked sizes — forced here so interpret-mode CI runs
-    the same composition the driver bench does."""
+    """CI coverage of the 0.25-degree refinement path: solve_shifted_ir
+    routed through the host-chunked inner engine (the default
+    BiCGStab(2) cycles), which `_use_chunked` only selects on large
+    grids — forced here so CPU tests run the same composition."""
     from otmb_tpu.models import solvers as S
 
     monkeypatch.setattr(S, "_use_chunked", lambda *a, **k: True)
@@ -1012,40 +1002,44 @@ def test_ir_stats_per_pass(ops, gridmetrics, indices):
     assert rels == sorted(rels, reverse=True)  # monotone contraction
 
 
-def test_resolve_apply_impl_demotion_signal(ops, gridmetrics, indices,
-                                            monkeypatch):
-    """Machine-readable demotion signal (round-4 verdict weak #8):
-    resolve_apply_impl reports when solve_shifted would silently demote
-    pallas -> jnp at j-blocked grid sizes on a real TPU."""
-    from otmb_tpu import resolve_apply_impl
-    from otmb_tpu.ops import stencil_pallas as SP
+def test_use_chunked_size_rule(ops, gridmetrics, indices, monkeypatch):
+    """The engine choice is a size rule on the grid (CHUNKED_MIN_COLUMNS):
+    the 0.25-degree plane takes the chunked BiCGStab(2) engine, the
+    1-degree plane the while_loop solver, and ideal_age follows it."""
+    from otmb_tpu.grid.topology import GridTopology
+    from otmb_tpu.models import solvers as S
+
+    quarter = GridTopology(kind="tripolar", nx=1440, ny=1080, nz=75)
+    one = GridTopology(kind="tripolar", nx=360, ny=300, nz=50)
+    assert S._use_chunked("pallas", None, False, quarter)
+    assert not S._use_chunked("pallas", None, False, one)
+    assert not S._use_chunked("jnp", None, False, quarter)
+    assert not S._use_chunked("pallas", None, True, quarter)
 
     topo = gridmetrics.topology
-    # off-TPU (tests): no demotion ever
-    assert resolve_apply_impl(topo, jnp.float32, "pallas") == "pallas"
-    assert resolve_apply_impl(topo, jnp.float32, "jnp") == "jnp"
+    called = {}
+    real = S.solve_shifted_chunked
 
-    # pretend we are on a real TPU: small grids stay pallas, blocked
-    # grids demote
-    monkeypatch.setattr(SP, "_default_interpret", lambda: False)
-    assert resolve_apply_impl(topo, jnp.float32, "pallas") == "pallas"
+    def spy(*a, **k):
+        called["algorithm"] = k.get("algorithm")
+        return real(*a, **k)
 
-    class FakeTopo:
-        shape3d = (75, 1080, 1440)  # 0.25-degree: j-blocked
-        is_tripolar = True
-
-    assert resolve_apply_impl(FakeTopo(), jnp.float32, "pallas") == "jnp"
-    # the mesh path is never demoted (it is the sharded production path)
-    assert resolve_apply_impl(
-        FakeTopo(), jnp.float32, "pallas", mesh=object()) == "pallas-halo"
+    monkeypatch.setattr(S, "solve_shifted_chunked", spy)
+    S.ideal_age(ops.T, indices.wet3d, topo, tol=1e-8, apply_impl="pallas")
+    assert not called
+    monkeypatch.setattr(S, "CHUNKED_MIN_COLUMNS", 1)
+    _, res = S.ideal_age(ops.T, indices.wet3d, topo, tol=1e-8,
+                         apply_impl="pallas")
+    assert called["algorithm"] == "bicgstab2"
+    assert float(res) < 1e-7
 
 
 @pytest.mark.parametrize("transpose", [False, True])
-def test_chunked_bicgstab2_fused_matches_composition(ops, gridmetrics,
-                                                     indices, transpose):
-    """The fused Krylov-step path (ops/krylov_pallas.py) must reach the
-    same solution as the separate-pass composition — only the dots'
-    summation order differs."""
+def test_chunked_bicgstab2_interpreted_thomas(ops, gridmetrics, indices,
+                                              transpose):
+    """The chunked BiCGStab(2) engine with the Thomas kernel in the
+    Pallas interpreter reaches the same solution as with the plain scans
+    (forward and adjoint)."""
     from otmb_tpu.models.solvers import solve_shifted_chunked
 
     topo = gridmetrics.topology
@@ -1056,37 +1050,23 @@ def test_chunked_bicgstab2_fused_matches_composition(ops, gridmetrics,
     c32 = jax.tree_util.tree_map(lambda a: a.astype(np.float32), ops.T)
     kw = dict(shift=np.float32(1e-3), tol=1e-6, chunk=20,
               algorithm="bicgstab2", transpose=transpose)
-    xf, rf = solve_shifted_chunked(c32, b, topo, fused=True, **kw)
-    xc, rc = solve_shifted_chunked(c32, b, topo, fused=False, **kw)
-    assert float(rf) < 1e-5 and float(rc) < 1e-5
+    xk, rk = solve_shifted_chunked(c32, b, topo, interpret=True, **kw)
+    xc, rc = solve_shifted_chunked(c32, b, topo, **kw)
+    assert float(rk) < 1e-5 and float(rc) < 1e-5
     scale = float(np.abs(np.asarray(xc)).max())
-    np.testing.assert_allclose(np.asarray(xf), np.asarray(xc),
+    np.testing.assert_allclose(np.asarray(xk), np.asarray(xc),
                                atol=2e-4 * scale, rtol=0)
 
 
-def test_blocked_while_guard_admits_short_loops(monkeypatch):
-    """Round-5 bracketing: the while_loop fault needs >1000 iterations
-    (PASS at 1000, CRASH at 1500); loops bounded by the 2x-margin safe
-    bound (500) are admitted instead of blanket-demoted."""
-    from otmb_tpu import resolve_apply_impl
-    from otmb_tpu.ops import stencil_pallas as SP
+def test_solve_shifted_rejects_unknown_apply_impl(ops, gridmetrics):
+    from otmb_tpu.models.solvers import solve_shifted
 
-    class FakeTopo:
-        shape3d = (75, 1080, 1440)
-        is_tripolar = True
-        kind = "tripolar"
-        nx, ny, nz = 1440, 1080, 75
-
-    monkeypatch.setattr(SP, "_default_interpret", lambda: False)
-    t = FakeTopo()
-    assert SP.blocked_unstable_in_while(t, 4)            # unknown bound
-    assert SP.blocked_unstable_in_while(t, 4, iters=501)
-    assert not SP.blocked_unstable_in_while(t, 4, iters=500)
-    assert resolve_apply_impl(t, jnp.float32, "pallas") == "jnp"
-    assert resolve_apply_impl(t, jnp.float32, "pallas",
-                              maxiter=300) == "pallas"
-    assert resolve_apply_impl(t, jnp.float32, "pallas",
-                              maxiter=2000) == "jnp"
+    b = np.ones(gridmetrics.shape)
+    with pytest.raises(ValueError, match="apply_impl"):
+        solve_shifted(ops.T, b, gridmetrics.topology, apply_impl="cuda")
+    with pytest.raises(ValueError, match="bicgstab"):
+        solve_shifted(ops.T, b, gridmetrics.topology, method="gmres",
+                      apply_impl="pallas")
 
 
 def test_diverge_restarts_break_deterministic_blowup(ops, gridmetrics,
@@ -1243,3 +1223,44 @@ def test_multi_diverge_restarts_jittered(ops, gridmetrics, indices):
     )
     assert st0["diverge_restarts"] == 0
     assert st0["iters"] <= stats["iters"]
+
+
+@pytest.mark.chip
+@pytest.mark.parametrize("engine", ["while_loop", "bicgstab2", "batched"])
+def test_krylov_dots_compile_as_reductions(gpu, engine):
+    """The Krylov inner products are f32 `vdot`s / sums over whole grid
+    vectors. On the GPU XLA must compile them as reductions: a cuBLAS or
+    Triton GEMM may run f32 in TF32 (about three digits), on which the
+    recurrences cannot converge to 1e-9. Checked on each engine's
+    compiled program."""
+    import re
+
+    from otmb_tpu.models.solvers import _mr_chunk2, _sr_chunk2, solve_shifted
+    from otmb_tpu.models.transport import assemble_transport
+    from otmb_tpu.utils.synthetic import synthetic_device_case
+
+    gm, wet, umo, vmo, mlotst = synthetic_device_case(128, 96, 20, seed=0)
+    T = assemble_transport(umo, vmo, mlotst, gm, wet).T
+    topo = gm.topology
+    b = jnp.where(wet, 1.0, 0.0).astype(jnp.float32)
+    one, zero = jnp.ones((), jnp.float32), jnp.zeros((), jnp.float32)
+    if engine == "while_loop":
+        lowered = solve_shifted.lower(T, b, topo, tol=1e-6,
+                                      apply_impl="pallas")
+    elif engine == "bicgstab2":
+        state = (0 * b, b, 0 * b, b, one, zero, one)
+        lowered = _sr_chunk2.lower(T, T, T.diag, state, 2, topo, "tridiag",
+                                   "gpu")
+    else:
+        bs = jnp.stack([b, 2 * b, 3 * b])
+        ones = jnp.ones((3,), jnp.float32)
+        state = (0 * bs, bs, 0 * bs, bs, ones, 0 * ones, ones)
+        lowered = _mr_chunk2.lower(T, T, T.diag, state, 2, topo, "tridiag",
+                                   "gpu")
+    # metadata carries source names, which may say anything
+    hlo = re.sub(r"metadata=\{[^}]*\}", "", lowered.compile().as_text())
+    gemms = sorted(set(re.findall(r"[\w$.]*(?:cublas|gemm)[\w$.]*", hlo,
+                                  re.IGNORECASE)))
+    targets = sorted(set(re.findall(r'custom_call_target="([^"]+)"', hlo)))
+    assert gemms == [], (gemms, targets)
+    assert "otmb_thomas" in hlo  # the kernel route was compiled
